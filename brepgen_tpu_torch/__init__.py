@@ -1,0 +1,21 @@
+"""PyTorch and CUDA port of ``brepgen_tpu`` for an NVIDIA H100.
+
+The JAX package beside it is the reference. This package imports torch and
+numpy only; where it needs code of the JAX package it keeps its own copy.
+Entry points run on the card (``device="cuda"``) unless the caller asks for
+the CPU, and raise when no card is present.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device: str | torch.device = "cuda") -> torch.device:
+    """The device to run on; raises for CUDA when no card is present."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run on the CPU"
+        )
+    return dev

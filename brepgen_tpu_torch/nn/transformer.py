@@ -1,0 +1,63 @@
+"""Pre-LN transformer encoder over padded token sets.
+
+Port of ``brepgen_tpu/nn/transformer.py``: pre-LN, ReLU FFN, a final
+LayerNorm, the fused ``qkv`` Dense, a key-padding mask (True = pad) and no
+positional encoding. Inference only: no dropout. Attention runs through the
+CUDA packed kernel (``attn_impl="kernel"``, the edge stages) or plain torch
+ops (``"plain"``, the short surf stages), as the JAX package routes the edge
+stages to Pallas and the surf stages to XLA.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from brepgen_tpu_torch.kernels.attention import packed_attention, packed_attention_reference
+from brepgen_tpu_torch.nn.layers import LayerNorm
+
+ATTN_IMPLS = {"plain": packed_attention_reference, "kernel": packed_attention}
+
+
+class MultiHeadSelfAttention(nn.Module):
+    def __init__(self, width: int, num_heads: int, attn_impl: str = "plain"):
+        super().__init__()
+        self.num_heads = num_heads
+        self.attn = ATTN_IMPLS[attn_impl]
+        self.qkv = nn.Linear(width, 3 * width)
+        self.proj = nn.Linear(width, width)
+
+    def forward(self, x, key_padding_mask=None):
+        return self.proj(self.attn(self.qkv(x), self.num_heads, key_padding_mask))
+
+
+class EncoderLayer(nn.Module):
+    def __init__(self, width: int, num_heads: int, ffn_width: int, attn_impl: str = "plain"):
+        super().__init__()
+        self.norm1 = LayerNorm(width)
+        self.attn = MultiHeadSelfAttention(width, num_heads, attn_impl)
+        self.norm2 = LayerNorm(width)
+        self.fc1 = nn.Linear(width, ffn_width)
+        self.fc2 = nn.Linear(ffn_width, width)
+
+    def forward(self, x, key_padding_mask=None):
+        x = x + self.attn(self.norm1(x), key_padding_mask)
+        return x + self.fc2(F.relu(self.fc1(self.norm2(x))))
+
+
+class TransformerEncoder(nn.Module):
+    def __init__(self, width: int = 768, num_heads: int = 12, ffn_width: int = 1024,
+                 num_layers: int = 12, attn_impl: str = "plain"):
+        super().__init__()
+        self.num_layers = num_layers
+        for i in range(num_layers):  # attribute names are the flax scopes
+            setattr(self, f"layer_{i}", EncoderLayer(width, num_heads, ffn_width, attn_impl))
+        self.final_norm = LayerNorm(width)
+
+    def forward(self, x: torch.Tensor, key_padding_mask: Optional[torch.Tensor] = None):
+        for i in range(self.num_layers):
+            x = getattr(self, f"layer_{i}")(x, key_padding_mask)
+        return self.final_norm(x)

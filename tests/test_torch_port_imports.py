@@ -1,0 +1,89 @@
+"""Port: stands alone from JAX, refuses to fall back to the CPU, and its CLI
+writes the raw batches."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import brepgen_tpu_torch
+from brepgen_tpu_torch.cli import sample_main
+from brepgen_tpu_torch.sampling import cascade
+
+ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
+PACKAGE = os.path.join(ROOT, "brepgen_tpu_torch")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "brepgen_tpu")
+PACKS = os.path.join(ROOT, "artifacts", "demo_round5", "all160k", "ckpt_packed")
+
+
+def test_import_leaves_jax_out():
+    code = (
+        "import sys, brepgen_tpu_torch, brepgen_tpu_torch.cli.sample_main, "
+        "brepgen_tpu_torch.kernels.attention\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r})\n"
+        "assert not bad, bad\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, check=True)
+
+
+def _sources():
+    for dirpath, _, files in os.walk(PACKAGE):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(dirpath, f)
+    yield os.path.join(ROOT, "chip_smoke.py")
+
+
+@pytest.mark.parametrize("path", sorted(_sources()), ids=lambda p: os.path.relpath(p, ROOT))
+def test_source_imports_nothing_of_jax(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            assert name.split(".")[0] not in FORBIDDEN, f"{path}: imports {name}"
+
+
+def test_entry_point_raises_without_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        brepgen_tpu_torch.resolve_device()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        sample_main.init_cascade("deepcad", batch_size=1)
+    assert brepgen_tpu_torch.resolve_device("cpu") == torch.device("cpu")
+
+
+def test_cli_writes_raw_batches(tmp_path, monkeypatch):
+    # the deepcad preset shrunk to 4 faces x 3 edges keeps the run short on
+    # a loaded CPU; one thread avoids oversubscribing it
+    monkeypatch.setitem(cascade.MODE_PRESETS, "deepcad",
+                        dict(num_surfaces=4, num_edges=3, use_cf=False))
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        sample_main.main([
+            "--mode", "deepcad", "--weights_dir", PACKS, "--batch_size", "2",
+            "--max_batches", "2", "--fast_steps", "4", "--device", "cpu",
+            "--save_folder", str(tmp_path),
+        ])
+    finally:
+        torch.set_num_threads(threads)
+    keys = ("surf_pos", "surf_mask", "surf_z", "surf_ncs", "edge_pos", "edge_mask", "edge_z",
+            "edge_v", "edge_ncs")
+    with np.load(tmp_path / "batches.npz") as out:
+        assert sorted(out.files) == sorted(f"{k}__{b}" for k in keys for b in (0, 1))
+        assert out["edge_ncs__1"].shape == (2, 8, 3, 32, 3)
+        assert np.isfinite(out["edge_ncs__1"]).all()
+        assert not out["surf_mask__0"][:, 0].any()
+        assert not np.array_equal(out["surf_pos__0"], out["surf_pos__1"])
