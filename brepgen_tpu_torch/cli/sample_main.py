@@ -1,30 +1,42 @@
 """Generation CLI: ``python -m brepgen_tpu_torch.cli.sample_main --mode deepcad``.
 
-Port of ``brepgen_tpu/cli/sample_main.py`` up to the raw cascade output:
-builds the four denoisers and the two VAEs, fills them from npz packs
-(``--weights_dir`` holding ``surfpos.npz``, ``surfz.npz``, ``edgepos.npz``,
-``edgez.npz``, ``surf_vae.npz``, ``edge_vae.npz`` as ``train/checkpoint.py``
-writes them, e.g. a ``ckpt_packed/`` folder; the architecture is read from
-them) or with random weights at the production widths from ``--seed`` when
-none are given, and runs the cascade batch by batch on the
-card. Host postprocessing and STEP/STL export are not ported yet: the raw
-batches go to ``<save_folder>/batches.npz`` as ``{key}__{batch}`` arrays, the
-format ``scripts/replay_postprocess.py`` reads.
+Port of ``brepgen_tpu/cli/sample_main.py``: builds the four denoisers and the
+two VAEs, fills them from npz packs (``--weights_dir`` holding
+``surfpos.npz``, ``surfz.npz``, ``edgepos.npz``, ``edgez.npz``,
+``surf_vae.npz``, ``edge_vae.npz`` as ``train/checkpoint.py`` writes them,
+e.g. a ``ckpt_packed/`` folder; the architecture is read from them) or with
+random weights at the production widths from ``--seed`` when none are given,
+and runs the cascade batch by batch on the card. Each sample is
+post-processed on the host (topology recovery, re-decode through the VAEs,
+joint optimization on the card) in a thread pool that overlaps the next
+batch's cascade, and written as STEP + STL to ``--save_folder``. With
+recovery (the default; ``--strict`` turns it off) a sample the reference
+semantics reject is retried through the recovery ladder. ``--num_samples N``
+stops after N valid B-reps (the JAX CLI's meaning). The raw batches also go
+to ``<save_folder>/batches.npz`` as ``{key}__{batch}`` arrays, the format
+``scripts/replay_postprocess.py`` reads.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
+import random
+import string
 import time
-from typing import Callable, Dict, Optional
+from concurrent.futures import FIRST_COMPLETED, Future, ThreadPoolExecutor, wait
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
 from brepgen_tpu_torch import resolve_device
 from brepgen_tpu_torch.cli.build import arch_of_packs, build_denoiser, build_vae, seed_weights
+from brepgen_tpu_torch.geometry.brep_build import construct_brep
 from brepgen_tpu_torch.nn.layers import cast_compute
+from brepgen_tpu_torch.postprocess.pipeline import make_padded_decoder, postprocess_single
+from brepgen_tpu_torch.postprocess.vertex_merge import PostprocessError
 from brepgen_tpu_torch.sampling import Cascade, CascadeConfig, GeneratorNoise
 from brepgen_tpu_torch.weights import load_flax_params
 
@@ -69,29 +81,155 @@ def init_cascade(mode: str = "deepcad", weights_dir: Optional[str] = None, seed:
     return Cascade(nets, surf_vae, edge_vae, config)
 
 
+def random_string(length=15):
+    return "".join(random.choice(string.ascii_letters + string.digits) for _ in range(length))
+
+
+def host_decoders(cascade: Cascade):
+    """The cascade's VAE decoders for host postprocess: numpy latents in,
+    numpy geometry out, run on the cascade's device."""
+    dev = cascade.device
+    return (make_padded_decoder(cascade.surf_vae.decode, (4, 4, 3), dev),
+            make_padded_decoder(cascade.edge_vae.decode, (4, 3), dev))
+
+
+def process_one(sample_np, batch_idx, surf_decode, edge_decode, z_threshold, save_folder,
+                recovery=False, device: str | torch.device = "cuda"):
+    """Postprocess + assemble one sample. With ``recovery``, a sample the
+    strict reference semantics would reject is retried through the
+    edge-pairing recovery ladder (postprocess/edge_merge.py); a rescued
+    sample returns its name with a "recovered: rung N" note instead of
+    err=None, so callers can account strict vs recovered validity."""
+    note = None
+    try:
+        rec = postprocess_single(sample_np, batch_idx, surf_decode, edge_decode, z_threshold,
+                                 device=device)
+    except (PostprocessError, AssertionError, IndexError, ValueError) as e:
+        if not recovery:
+            return None, f"postprocess failed: {e}"
+        try:
+            rec = postprocess_single(sample_np, batch_idx, surf_decode, edge_decode,
+                                     z_threshold, recovery=True, device=device)
+            note = f"recovered: rung {rec.recovery_rung}"
+        except (PostprocessError, AssertionError, IndexError, ValueError) as e2:
+            # report BOTH failures: the strict reason is the taxonomy key,
+            # the recovery reason says which ladder rung gave up
+            return None, f"postprocess failed: {e} [recovery failed: {e2}]"
+    try:
+        solid = construct_brep(
+            rec.surf_wcs, rec.edge_wcs, rec.face_edge_adj, rec.edge_vertex_adj,
+            vertices=rec.unique_vertices,
+        )
+    except Exception as e:  # noqa: BLE001 -- parity with reference's skip
+        return None, f"brep rebuild failed: {e}"
+    name = f"{random_string()}_{batch_idx}"
+    solid.write_step(os.path.join(save_folder, name + ".step"))
+    solid.write_stl(os.path.join(save_folder, name + ".stl"))
+    if not solid.topology_ok():
+        # counted valid (the reference's criterion is surviving postprocess
+        # + rebuild), but the STEP export degrades to a loose GEOMETRIC_SET
+        # instead of a MANIFOLD_SOLID_BREP -- callers report this honestly
+        # as validity vs validity_solid
+        note = f"{note}; nonsolid" if note else "nonsolid"
+    return name, note
+
+
+@dataclasses.dataclass
+class SampleRun:
+    """What one ``sample_loop`` produced."""
+
+    batches: List[Dict[str, np.ndarray]]
+    attempted: int = 0                  # samples sent to postprocess
+    names: List[str] = dataclasses.field(default_factory=list)  # valid B-reps
+    strict: int = 0                     # valid without the recovery ladder
+    solid: int = 0                      # valid and exported as a solid
+    failures: Dict[str, int] = dataclasses.field(default_factory=dict)
+    rungs: Dict[str, int] = dataclasses.field(default_factory=dict)
+    seconds: float = 0.0
+
+    @property
+    def produced(self) -> int:
+        return len(self.names)
+
+    def add(self, name: Optional[str], note: Optional[str]) -> None:
+        if name is None:
+            key = note.split(":")[0]
+            self.failures[key] = self.failures.get(key, 0) + 1
+            return
+        self.names.append(name)
+        parts = (note or "").split("; ")
+        self.strict += not parts[0].startswith("recovered")
+        self.solid += "nonsolid" not in parts
+        if parts[0].startswith("recovered"):
+            self.rungs[parts[0]] = self.rungs.get(parts[0], 0) + 1
+
+    def report(self) -> str:
+        lines = [f"produced {self.produced}/{self.attempted} valid B-reps from "
+                 f"{len(self.batches)} batches (strict {self.strict}, recovered "
+                 f"{self.produced - self.strict}, solid {self.solid}) in {self.seconds:.2f} s"]
+        if self.rungs:
+            lines.append(f"recovery rungs: {dict(sorted(self.rungs.items()))}")
+        if self.failures:
+            lines.append(f"failure breakdown: {self.failures}")
+        return "\n".join(lines)
+
+
 def sample_loop(cascade: Cascade, num_samples: int = 0, max_batches: int = 0, seed: int = 0,
                 save_folder: Optional[str] = None, stage_times: Optional[Dict] = None,
-                after_stage: Optional[Callable[[str], None]] = None) -> list:
-    """Run batches until ``num_samples`` samples (0 = no limit) or
-    ``max_batches`` batches (0 = no limit); returns the batches as numpy
-    dicts and, with ``save_folder``, writes them to ``batches.npz`` there."""
+                after_stage: Optional[Callable[[str], None]] = None, postprocess: bool = True,
+                recovery: bool = True, workers: int = 8) -> SampleRun:
+    """Run batches until ``num_samples`` valid B-reps (0 = no limit) or
+    ``max_batches`` batches (0 = no limit). Each batch's samples are
+    post-processed in a pool of ``workers`` threads while the next batch
+    runs, and written as STEP + STL to ``save_folder``; the raw batches go
+    to ``batches.npz`` there. ``postprocess=False`` runs the cascade alone
+    and then counts raw samples against ``num_samples``."""
+    if postprocess and not save_folder:
+        raise ValueError("sample_loop: postprocess writes STEP/STL and needs a save_folder")
+    if save_folder:
+        os.makedirs(save_folder, exist_ok=True)
     gen = torch.Generator(device=cascade.device).manual_seed(seed)
     noise = GeneratorNoise(gen)
     B = cascade.cfg.batch_size
-    batches = []
-    while True:
-        out = cascade(noise, stage_times=stage_times, after_stage=after_stage)
-        batches.append({k: v.cpu().numpy() for k, v in out.items()})
-        if (num_samples and len(batches) * B >= num_samples) or (
-                max_batches and len(batches) >= max_batches):
-            break
+    run = SampleRun(batches=[])
+    surf_decode, edge_decode = host_decoders(cascade)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max(workers, 1)) as pool:
+        pending: List[Future] = []
+
+        def collect(done):
+            for f in done:
+                run.add(*f.result())
+                pending.remove(f)
+
+        while True:
+            out = cascade(noise, stage_times=stage_times, after_stage=after_stage)
+            sample_np = {k: v.cpu().numpy() for k, v in out.items()}
+            run.batches.append(sample_np)
+            if postprocess:
+                # host postprocess of batch k overlaps the cascade of batch k + 1
+                pending += [pool.submit(process_one, sample_np, b, surf_decode, edge_decode,
+                                        cascade.cfg.z_threshold, save_folder, recovery,
+                                        cascade.device) for b in range(B)]
+                run.attempted += B
+                collect([f for f in pending if f.done()])
+            count = run.produced if postprocess else len(run.batches) * B
+            if (num_samples and count >= num_samples) or (
+                    max_batches and len(run.batches) >= max_batches):
+                break
+            # backpressure: the next batch starts once less than two batches
+            # of samples wait, so a postprocess slower than the cascade does
+            # not queue without bound
+            while len(pending) >= 2 * B:
+                collect(wait(pending, return_when=FIRST_COMPLETED).done)
+        collect(list(pending))
+    run.seconds = time.perf_counter() - t0
     if save_folder:
-        os.makedirs(save_folder, exist_ok=True)
         np.savez_compressed(
             os.path.join(save_folder, "batches.npz"),
-            **{f"{k}__{bi}": v for bi, b in enumerate(batches) for k, v in b.items()},
+            **{f"{k}__{bi}": v for bi, b in enumerate(run.batches) for k, v in b.items()},
         )
-    return batches
+    return run
 
 
 def main(argv=None):
@@ -100,7 +238,8 @@ def main(argv=None):
     p.add_argument("--weights_dir", default=None,
                    help="folder of npz packs; random production-width weights from --seed "
                         "when absent")
-    p.add_argument("--num_samples", type=int, default=0, help="stop after N samples (0 = no limit)")
+    p.add_argument("--num_samples", type=int, default=0,
+                   help="stop after N valid B-reps (0 = no limit)")
     p.add_argument("--max_batches", type=int, default=0)
     p.add_argument("--batch_size", type=int, default=16)
     p.add_argument("--seed", type=int, default=0)
@@ -112,6 +251,10 @@ def main(argv=None):
                    help="N-step DDIM per stage instead of the full protocol")
     p.add_argument("--save_folder", default=None, help="default: samples_<mode>")
     p.add_argument("--device", default="cuda")
+    p.add_argument("--strict", action="store_true",
+                   help="reference postprocess semantics: reject any sample whose edge "
+                        "pairing is ambiguous instead of running the recovery ladder")
+    p.add_argument("--workers", type=int, default=8, help="host postprocess threads")
     args = p.parse_args(argv)
     if not (args.num_samples or args.max_batches):
         p.error("give --num_samples or --max_batches")
@@ -123,12 +266,12 @@ def main(argv=None):
                            torch.bfloat16 if args.bf16 else torch.float32, args.device,
                            overrides)
     stage_times: Dict[str, float] = {}
-    t0 = time.perf_counter()
-    batches = sample_loop(cascade, args.num_samples, args.max_batches, args.seed,
-                          args.save_folder or f"samples_{args.mode}", stage_times)
-    print(f"generated {len(batches)} batches of {args.batch_size} in "
-          f"{time.perf_counter() - t0:.2f} s; per stage "
-          + ", ".join(f"{k} {v:.2f} s" for k, v in stage_times.items()))
+    run = sample_loop(cascade, args.num_samples, args.max_batches, args.seed,
+                      args.save_folder or f"samples_{args.mode}", stage_times,
+                      recovery=not args.strict, workers=args.workers)
+    print(run.report())
+    print("cascade seconds per stage: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in stage_times.items()))
 
 
 if __name__ == "__main__":

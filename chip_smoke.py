@@ -3,22 +3,27 @@
 
 Run from the repository root on a machine with one CUDA card:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--seed N]
 
 It builds the port's CUDA kernels from ``brepgen_tpu_torch/kernels/csrc`` with
-nvcc, holds each against its plain PyTorch version on the card, drives the
-deepcad sampling cascade at the production width through the port's own entry
-points (seeded weights, DDIM fast mode) after a small cascade on the card
-against the same one on the CPU, drives the default PNDM + DDPM
-protocol on the committed all160k packs, and checks shapes, finiteness, masks
-and kernel launch counts. Each phase prints one line with its seconds. The
-last lines are one JSON object of kernel measurements and the result line.
-Any failure raises and exits non-zero; without a CUDA card it exits 1 and
-prints no result. It imports torch, numpy and ``brepgen_tpu_torch`` only.
+nvcc (one nvcc per source, started together), holds each against its plain
+PyTorch version on the card, drives the deepcad sampling cascade at the
+production width through the port's own entry points (seeded weights, DDIM
+fast mode) after a small cascade on the card against the same one on the
+CPU, drives the default PNDM + DDPM protocol on the committed all160k packs
+with host postprocess overlapping the cascade (STEP + STL), post-processes
+one batch serially, samples point clouds from the solids and scores them
+against reference clouds drawn from ``--seed`` through the Chamfer kernel.
+It checks shapes, finiteness, masks, solids and kernel launch counts. Each
+phase prints one line with its seconds. The last lines are one JSON object
+of kernel measurements and the result line. Any failure raises and exits
+non-zero; without a CUDA card it exits 1 and prints no result. It imports
+torch, numpy and ``brepgen_tpu_torch`` only.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import subprocess
@@ -41,6 +46,12 @@ REL = {"float32": 0.0, "bfloat16": 2.0 ** -8}
 ABS = 1e-4
 MAX_ABS = {"float32": 1e-4, "bfloat16": 2e-2}
 KERNEL_SHAPES = ((16, 1800, 768, 12), (4, 1800, 256, 8))  # (B, S, W, H)
+# Chamfer matrix: (S, R, P, n_pts); the first is the n=256 eval protocol
+CHAMFER_SHAPES = ((256, 256, 2000, 2000), (37, 13, 300, 300), (37, 13, 300, 257))
+CHAMFER_PROTOCOL = (3000, 1000, 2000)  # one repeat of the eval protocol, timed
+# |kernel - plain| <= CHAMFER_REL * |plain| + CHAMFER_ABS per element: the
+# kernel fuses multiply-adds and sums its means in another order (~1e-7 rel)
+CHAMFER_REL, CHAMFER_ABS = 1e-5, 1e-7
 
 
 def log(msg: str) -> None:
@@ -136,6 +147,76 @@ def phase_kernel(torch, results):
     torch.cuda.empty_cache()
 
 
+def chamfer_bound(S, R, P, n):
+    """2 directions x S*R*n^2 distances x 8 FLOP (3 sub, 3 mul, 2 add) in
+    f32 against each cloud read once and the matrix written once."""
+    flops = 2.0 * S * R * n * n * 8
+    nbytes = (S + R) * P * 3 * 4 + S * R * 4
+    t_ops, t_bytes = flops / PEAK_FLOPS["float32"] * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def cdist_yardstick(torch, x, y, refs=64):
+    """Several PyTorch calls for the same matrix: torch.cdist on blocks of
+    one sample against ``refs`` references, squared, then amin and mean in
+    both directions. A yardstick only; the port never calls it."""
+    out = torch.empty((x.shape[0], y.shape[0]), device=x.device)
+    for i in range(x.shape[0]):
+        for j in range(0, y.shape[0], refs):
+            yj = y[j:j + refs]
+            d2 = torch.cdist(x[i].expand(len(yj), -1, -1), yj) ** 2
+            out[i, j:j + refs] = d2.amin(2).mean(1) + d2.amin(1).mean(1)
+    return out
+
+
+def phase_chamfer(torch, gen):
+    from brepgen_tpu_torch.kernels.chamfer import chamfer_matrix, chamfer_matrix_reference
+
+    shapes = []
+    for S, R, P, n in CHAMFER_SHAPES:
+        x = torch.randn((S, P, 3), generator=gen, device="cuda")
+        y = torch.randn((R, P, 3), generator=gen, device="cuda")
+        x[:, n:] = 1e3  # padding past n_pts: the kernel must not read it
+        got = chamfer_matrix(x, y, n_pts=n)
+        want = chamfer_matrix_reference(x, y, n)
+        diff = (got - want).abs()
+        err = diff.max().item()
+        over = (diff - (CHAMFER_REL * want.abs() + CHAMFER_ABS)).max().item()
+        tol = f"|err| <= {CHAMFER_REL:g}*|plain| + {CHAMFER_ABS:g}"
+        if over > 0 or not torch.isfinite(got).all():
+            raise AssertionError(f"chamfer S={S} R={R} P={P} n={n}: max_abs_err {err:.3e} "
+                                 f"({over:.3e} over the bound); tolerance {tol}")
+        row = dict(S=S, R=R, P=P, n_pts=n, max_abs_err=err,
+                   mean_value=want.mean().item())
+        row["bound_ms"], row["bound_by"] = chamfer_bound(S, R, P, n)
+        if len(shapes) == 0:
+            row["ms"] = time_ms(torch, lambda: chamfer_matrix(x, y, n_pts=n), 5)
+            row["plain_ms"] = time_ms(torch, lambda: chamfer_matrix_reference(x, y, n), 1)
+            row["yardstick_ms"] = time_ms(torch, lambda: cdist_yardstick(torch, x, y), 1)
+            times = (f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, cdist "
+                     f"yardstick (several calls) {row['yardstick_ms']:.4f} ms, bound "
+                     f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+        else:
+            times = f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})"
+        shapes.append(row)
+        log(f"kernel chamfer S={S} R={R} P={P} n_pts={n}: max_abs_err {err:.3e} (mean "
+            f"value {row['mean_value']:.4f}); tolerance {tol}; {times}")
+        del x, y, got, want, diff
+    S, R, P = CHAMFER_PROTOCOL
+    x = torch.randn((S, P, 3), generator=gen, device="cuda")
+    y = torch.randn((R, P, 3), generator=gen, device="cuda")
+    row = dict(S=S, R=R, P=P, n_pts=P, ms=time_ms(torch, lambda: chamfer_matrix(x, y), 1))
+    row["bound_ms"], row["bound_by"] = chamfer_bound(S, R, P, P)
+    if not torch.isfinite(chamfer_matrix(x, y)).all():
+        raise AssertionError("chamfer at one protocol repeat: non-finite values")
+    shapes.append(row)
+    log(f"kernel chamfer at one eval protocol repeat S={S} R={R} P={P}: kernel "
+        f"{row['ms']:.2f} ms, bound {row['bound_ms']:.2f} ms ({row['bound_by']})")
+    del x, y
+    torch.cuda.empty_cache()
+    return shapes
+
+
 class CpuNoise:
     """N(0, 1) draws from a CPU generator, moved to ``device``: the same
     numbers whatever the device."""
@@ -207,49 +288,160 @@ def check_batch(np, out, B, ns, ne):
     return int(surf_keep.sum()), int(edge_keep.sum())
 
 
-def drive(torch, np, label, cascade, expected_edge_calls):
-    """Run one batch through the user's entry point; check it and the counts."""
+def drive(torch, np, label, cascade, expected_edge_calls, batches=1, save_folder=None):
+    """Run ``batches`` batches through the user's entry point, with host
+    postprocess into ``save_folder`` when one is given; check the batches
+    and the kernel counts (reset just before, read just after)."""
     from brepgen_tpu_torch.cli.sample_main import sample_loop
     from brepgen_tpu_torch.kernels import LAUNCH_COUNTS, reset_launch_counts
 
     cfg = cascade.cfg
     net = cascade.nets["edgez"]
     layers = net.encoder.num_layers
-    after = {}
+    events = []
     stage_times = {}
+    calls0 = sum(cascade.model_calls[s] for s in ("edgepos", "edgez"))
     with tempfile.TemporaryDirectory() as tmp:
+        folder = save_folder or tmp
         reset_launch_counts()
-        t0 = time.perf_counter()
-        batches = sample_loop(cascade, max_batches=1, seed=0, save_folder=tmp,
-                              stage_times=stage_times,
-                              after_stage=lambda s: after.__setitem__(s, LAUNCH_COUNTS["packed_attention"]))
-        seconds = time.perf_counter() - t0
-        launches = LAUNCH_COUNTS["packed_attention"]
-        with np.load(os.path.join(tmp, "batches.npz")) as saved:
-            if sorted(saved.files) != sorted(f"{k}__0" for k in batches[0]):
+        run = sample_loop(cascade, max_batches=batches, seed=0, save_folder=folder,
+                          stage_times=stage_times, postprocess=save_folder is not None,
+                          recovery=True, workers=4,
+                          after_stage=lambda s: events.append((s, LAUNCH_COUNTS["packed_attention"])))
+        counts = dict(LAUNCH_COUNTS)
+        with np.load(os.path.join(folder, "batches.npz")) as saved:
+            want = sorted(f"{k}__{b}" for b in range(batches) for k in run.batches[0])
+            if sorted(saved.files) != want:
                 raise AssertionError(f"batches.npz keys {saved.files}")
-    faces, edges = check_batch(np, batches[0], cfg.batch_size, cfg.faces, cfg.num_edges)
-    calls = cascade.model_calls
-    edge_calls = calls["edgepos"] + calls["edgez"]
-    if edge_calls != expected_edge_calls:
-        raise AssertionError(f"{label}: {edge_calls} edge-stage calls, expected {expected_edge_calls}")
-    if after["surfz"] != 0:
-        raise AssertionError(f"{label}: surf stages launched the kernel {after['surfz']} times")
-    if launches != layers * edge_calls or after["edgez"] != launches:
-        raise AssertionError(f"{label}: {launches} kernel launches, expected "
-                             f"{layers} x {edge_calls} edge-stage calls")
-    log(f"{label}: B={cfg.batch_size} ns={cfg.faces} ne={cfg.num_edges} "
-        f"S={cfg.faces * cfg.num_edges}; model calls {calls}; packed_attention launches "
-        f"{launches} = {layers} layers x {edge_calls} edge calls (surf stages 0); kept "
-        f"{faces} faces, {edges} edges; stage seconds "
+    launches = counts["packed_attention"]
+    kept = [check_batch(np, b, cfg.batch_size, cfg.faces, cfg.num_edges) for b in run.batches]
+    edge_calls = sum(cascade.model_calls[s] for s in ("edgepos", "edgez")) - calls0
+    if edge_calls != batches * expected_edge_calls:
+        raise AssertionError(f"{label}: {edge_calls} edge-stage calls, expected "
+                             f"{batches} x {expected_edge_calls}")
+    per_stage, prev = {}, 0
+    for stage, count in events:
+        per_stage[stage] = per_stage.get(stage, 0) + count - prev
+        prev = count
+    off_edge = {k: v for k, v in per_stage.items() if not k.startswith("edge") and v}
+    if off_edge or launches != layers * edge_calls or prev != launches:
+        raise AssertionError(f"{label}: {launches} kernel launches (by stage {per_stage}), "
+                             f"expected {layers} x {edge_calls} edge-stage calls, none elsewhere")
+    if counts["chamfer"]:
+        raise AssertionError(f"{label}: the sampling path launched the chamfer kernel")
+    cascade_s = sum(stage_times.values())
+    log(f"{label}: {batches} batch(es) of B={cfg.batch_size} ns={cfg.faces} "
+        f"ne={cfg.num_edges} S={cfg.faces * cfg.num_edges}; edge-stage calls {edge_calls}; "
+        f"packed_attention launches {launches} = {layers} layers x {edge_calls} (other stages "
+        f"0); kept (faces, edges) per batch {kept}; cascade stage seconds "
         + ", ".join(f"{k} {v:.2f}" for k, v in stage_times.items())
-        + f"; total {seconds:.2f} s")
+        + f"; total {run.seconds:.2f} s, {run.seconds / batches:.2f} s per batch")
+    if save_folder is not None:
+        log(f"{label}: postprocess overlapped with the cascade ({run.attempted} samples, 4 "
+            f"threads): " + run.report().replace("\n", "; "))
+        if run.attempted != batches * cfg.batch_size:
+            raise AssertionError(f"{label}: {run.attempted} samples post-processed")
     return dict(path=label, B=cfg.batch_size, S=cfg.faces * cfg.num_edges, W=net.width,
                 H=net.encoder.layer_0.attn.num_heads, dtype=str(net.dtype).split(".")[-1],
-                launches=launches, seconds=seconds)
+                batches=batches, launches=launches, seconds=run.seconds,
+                cascade_seconds=cascade_s, produced=run.produced,
+                attempted=run.attempted), run
 
 
-def main() -> int:
+def phase_solids(torch, np, cascade, batch, folder):
+    """Batch 0 of the protocol run through ``process_one`` with recovery, one
+    sample after another (no overlap): STEP + STL into ``folder``."""
+    from brepgen_tpu_torch.cli.sample_main import SampleRun, host_decoders, process_one
+    from brepgen_tpu_torch.kernels import LAUNCH_COUNTS, reset_launch_counts
+
+    surf_decode, edge_decode = host_decoders(cascade)
+    run = SampleRun(batches=[batch])
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    per_sample = []
+    for b in range(cascade.cfg.batch_size):
+        t = time.perf_counter()
+        name, note = process_one(batch, b, surf_decode, edge_decode, cascade.cfg.z_threshold,
+                                 folder, recovery=True, device=cascade.device)
+        per_sample.append(time.perf_counter() - t)
+        run.add(name, note)
+        run.attempted += 1
+        if name is not None:
+            for suffix in (".step", ".stl"):
+                path = os.path.join(folder, name + suffix)
+                if not os.path.getsize(path):
+                    raise AssertionError(f"solids: {path} is empty")
+    torch.cuda.synchronize()
+    run.seconds = time.perf_counter() - t0
+    if any(LAUNCH_COUNTS.values()):
+        raise AssertionError(f"solids: postprocess launched port kernels {LAUNCH_COUNTS}")
+    if run.produced < 1:
+        raise AssertionError(f"solids: no valid solid from the protocol batch; {run.report()}")
+    log("solids (all160k protocol batch 0, process_one with recovery, serial): "
+        + run.report().replace("\n", "; ")
+        + "; seconds per sample " + ", ".join(f"{t:.2f}" for t in per_sample))
+    return dict(attempted=run.attempted, produced=run.produced, strict=run.strict,
+                solid=run.solid, failures=run.failures, rungs=run.rungs, seconds=run.seconds)
+
+
+def reference_clouds(np, folder, seed, count=64, n=2000):
+    """``count`` clouds of ``n`` points on the surfaces of random boxes
+    (sides 0.2 to 1, area-weighted faces), written as PLY."""
+    from brepgen_tpu_torch.geometry.ply import write_ply
+
+    rng = np.random.default_rng(seed)
+    os.makedirs(folder)
+    for i in range(count):
+        size = rng.uniform(0.2, 1.0, 3)
+        areas = np.array([size[1] * size[2], size[0] * size[2], size[0] * size[1]] * 2)
+        face = rng.choice(6, size=n, p=areas / areas.sum())
+        pts = rng.uniform(0, 1, (n, 3)) * size
+        axis = face % 3
+        pts[np.arange(n), axis] = np.where(face < 3, 0.0, size[axis])
+        write_ply(os.path.join(folder, f"box_{i:03d}.ply"), pts)
+
+
+def phase_eval(torch, np, stl_root, work, seed, times=3):
+    """STLs -> 2000-point clouds -> JSD / MMD-CD / COV-CD against box clouds,
+    the Chamfer matrices through kernel K4 (one launch per repeat)."""
+    from brepgen_tpu_torch.eval.pipeline import find_files, run_metrics, sample_points_dir
+    from brepgen_tpu_torch.geometry.ply import read_ply
+    from brepgen_tpu_torch.kernels import LAUNCH_COUNTS, reset_launch_counts
+
+    fake, real = os.path.join(work, "fake_ply"), os.path.join(work, "real_ply")
+    t0 = time.perf_counter()
+    n_fake = sample_points_dir(stl_root, fake, seed=seed)
+    for p in find_files(fake, ".ply"):
+        pc = read_ply(p)
+        if pc.shape != (2000, 3) or not np.isfinite(pc).all():
+            raise AssertionError(f"eval: {p} holds {pc.shape} points")
+    reference_clouds(np, real, seed)
+    t1 = time.perf_counter()
+    reset_launch_counts()
+    avg = run_metrics(fake, real, n_test=64, multi=3, times=times, seed=seed, device="cuda")
+    torch.cuda.synchronize()
+    launches = dict(LAUNCH_COUNTS)
+    t2 = time.perf_counter()
+    if launches["chamfer"] != times or launches["packed_attention"]:
+        raise AssertionError(f"eval: launches {launches}, expected {times} chamfer (one "
+                             f"per repeat) and nothing else")
+    ok = (np.isfinite(list(avg.values())).all() and avg["avg-MMD-CD"] > 0
+          and 0 < avg["avg-COV-CD"] <= 1 and 0 <= avg["avg-JSD"] <= 1)
+    if not ok:
+        raise AssertionError(f"eval: metrics out of range {avg}")
+    log(f"eval: {n_fake} STLs sampled to 2000-point clouds in {t1 - t0:.2f} s; "
+        f"against 64 random-box clouds (seed {seed}), {times} repeats in {t2 - t1:.2f} s, "
+        f"chamfer launches {launches['chamfer']} (one per repeat); SMOKE values, not a "
+        f"quality number: " + ", ".join(f"{k} {v:.6f}" for k, v in avg.items()))
+    return dict(clouds=n_fake, launches=launches["chamfer"], seconds=t2 - t1, metrics=avg)
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--seed", type=int, default=0,
+                   help="seed of the reference clouds of the eval phase and its cloud draws")
+    args = p.parse_args(argv)
     import numpy as np
     import torch
 
@@ -259,6 +451,8 @@ def main() -> int:
     # full f32 in matrix products and convolutions, as the CPU reference
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    from concurrent.futures import ThreadPoolExecutor
+
     from brepgen_tpu_torch.cli.sample_main import init_cascade
     from brepgen_tpu_torch.diffusion import make_pndm_plan
     from brepgen_tpu_torch.kernels import _build
@@ -269,20 +463,28 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     t = time.perf_counter()
-    _build.load("packed_attention")
+    kernels = ("packed_attention", "chamfer")
+    with ThreadPoolExecutor(len(kernels)) as pool:  # one nvcc per source, together
+        list(pool.map(_build.load, kernels))
     build_s = time.perf_counter() - t
-    ptxas = [ln.strip() for ln in _build.BUILD_LOG.get("packed_attention", (0, ""))[1].splitlines()
-             if "registers" in ln or "spill" in ln or "entry function" in ln]
     log(f"env: python {sys.version.split()[0]}, torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, card {torch.cuda.get_device_name(0)} ({smi}), "
-        f"{torch.cuda.device_count()} visible; packed_attention built in {build_s:.2f} s")
-    for ln in ptxas:
-        log(f"  ptxas: {ln}")
+        f"{torch.cuda.device_count()} visible; {', '.join(kernels)} built in {build_s:.2f} s")
+    for name in kernels:
+        secs, report = _build.BUILD_LOG.get(name, (0.0, ""))
+        log(f"  nvcc {name}: {secs:.2f} s")
+        for ln in report.splitlines():
+            if "registers" in ln or "spill" in ln or "entry function" in ln:
+                log(f"  ptxas: {ln.strip()}")
 
     results = []
     t = time.perf_counter()
     phase_kernel(torch, results)
-    log(f"phase kernel done in {time.perf_counter() - t:.2f} s")
+    log(f"phase kernel packed_attention done in {time.perf_counter() - t:.2f} s")
+
+    t = time.perf_counter()
+    chamfer_shapes = phase_chamfer(torch, torch.Generator(device="cuda").manual_seed(args.seed))
+    log(f"phase kernel chamfer done in {time.perf_counter() - t:.2f} s")
 
     t = time.perf_counter()
     phase_small(torch)
@@ -293,22 +495,53 @@ def main() -> int:
     cascade = init_cascade("deepcad", seed=0, batch_size=16, device="cuda",
                            step_overrides={"fast_steps": fast})
     log(f"cascade: production weights seeded in {time.perf_counter() - t:.2f} s")
-    paths = [drive(torch, np, "cascade (production width, seeded, DDIM 50)", cascade, 2 * fast)]
+    path, _ = drive(torch, np, "cascade (production width, seeded, DDIM 50)", cascade, 2 * fast)
+    paths = [path]
     del cascade
     torch.cuda.empty_cache()
     log(f"phase cascade done in {time.perf_counter() - t:.2f} s")
 
-    t = time.perf_counter()
-    cascade = init_cascade("deepcad", PACKS, batch_size=4, device="cuda")
-    log(f"protocol: all160k packs loaded in {time.perf_counter() - t:.2f} s")
-    cfg = cascade.cfg
-    expected = cfg.pos_pndm_calls + cfg.ddpm_tail + len(make_pndm_plan(cfg.pndm_steps).t_model)
-    paths.append(drive(torch, np, "protocol (all160k packs, PNDM + DDPM)", cascade, expected))
-    log(f"phase protocol done in {time.perf_counter() - t:.2f} s")
+    with tempfile.TemporaryDirectory() as work:
+        t = time.perf_counter()
+        cascade = init_cascade("deepcad", PACKS, batch_size=4, device="cuda")
+        log(f"protocol: all160k packs loaded in {time.perf_counter() - t:.2f} s")
+        cfg = cascade.cfg
+        expected = (cfg.pos_pndm_calls + cfg.ddpm_tail
+                    + len(make_pndm_plan(cfg.pndm_steps).t_model))
+        path, run = drive(torch, np, "protocol (all160k packs, PNDM + DDPM)", cascade, expected)
+        paths.append(path)
+        log(f"phase protocol done in {time.perf_counter() - t:.2f} s")
 
-    # the top-level numbers are those of the full-width shape in f32 and its
-    # cascade run; "shapes" has every measured shape, "paths" every driven run
-    main_shape = results[0]
+        t = time.perf_counter()
+        serial_dir = os.path.join(work, "solids", "serial")
+        os.makedirs(serial_dir)
+        solids = phase_solids(torch, np, cascade, run.batches[0], serial_dir)
+        log(f"phase solids done in {time.perf_counter() - t:.2f} s")
+
+        # the user's path: host postprocess of batch k overlaps the cascade of
+        # batch k + 1, against the same work one after the other
+        t = time.perf_counter()
+        path, _ = drive(torch, np, "protocol with postprocess (all160k packs, 4 threads)",
+                        cascade, expected, batches=2,
+                        save_folder=os.path.join(work, "solids", "overlapped"))
+        paths.append(path)
+        serial = paths[-2]["seconds"] + solids["seconds"]
+        overlapped = path["seconds"] / path["batches"]
+        solids.update(seconds_per_batch_overlapped=overlapped, seconds_per_batch_serial=serial)
+        log(f"phase overlap done in {time.perf_counter() - t:.2f} s; seconds per batch: "
+            f"{overlapped:.2f} with postprocess overlapping the next cascade (cascade stages "
+            f"{path['cascade_seconds'] / path['batches']:.2f} of it), {serial:.2f} one after "
+            f"the other (cascade {paths[-2]['seconds']:.2f} + postprocess "
+            f"{solids['seconds']:.2f})")
+
+        t = time.perf_counter()
+        evaluation = phase_eval(torch, np, os.path.join(work, "solids"), work, args.seed)
+        log(f"phase eval done in {time.perf_counter() - t:.2f} s")
+
+    # the top-level numbers are those of the main shape (packed_attention:
+    # the full-width f32 shape; chamfer: the n=256 eval protocol) and of the
+    # main path's run; "shapes" has every measured shape, "paths" every run
+    main_shape, chamfer_main = results[0], chamfer_shapes[0]
     print(json.dumps({"kernels": [{
         "name": "packed_attention",
         "route": "cuda",
@@ -323,6 +556,22 @@ def main() -> int:
         "library_ms": main_shape["library_ms"],
         "shapes": results,
         "paths": paths,
+    }, {
+        "name": "chamfer",
+        "route": "cuda",
+        "source": "brepgen_tpu_torch/kernels/csrc/chamfer.cu",
+        "replaces": "brepgen_tpu/kernels/chamfer.py:47",
+        "launches": evaluation["launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in chamfer_shapes if "max_abs_err" in r),
+        "ms": chamfer_main["ms"],
+        "plain_ms": chamfer_main["plain_ms"],
+        "bound_ms": chamfer_main["bound_ms"],
+        "bound_by": chamfer_main["bound_by"],
+        "library_ms": None,
+        "yardstick_ms": chamfer_main["yardstick_ms"],
+        "shapes": chamfer_shapes,
+        "paths": [dict(path="eval (STL -> clouds -> JSD/MMD/COV)", **evaluation),
+                  dict(path="solids (protocol batch 0, serial)", **solids)],
     }]}), flush=True)
     log(f"all phases passed in {time.perf_counter() - T0:.2f} s")
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,5 @@
-"""Port: the CUDA kernels against their plain versions, on the card.
+"""Port: the CUDA kernels (K1 packed attention, K4 Chamfer matrix) against
+their plain versions, on the card.
 
 Marked ``cuda``: they skip without a card. This file imports no JAX, so it
 also runs on a machine without it (``--noconftest`` skips the JAX set-up of
@@ -13,6 +14,7 @@ import torch
 
 from brepgen_tpu_torch.kernels import LAUNCH_COUNTS
 from brepgen_tpu_torch.kernels.attention import packed_attention, packed_attention_reference
+from brepgen_tpu_torch.kernels.chamfer import chamfer_matrix, chamfer_matrix_reference
 
 
 def _inputs(B, S, W, seed):
@@ -55,3 +57,51 @@ def test_kernel_rejects_unsupported_input(cuda):
         packed_attention(torch.zeros((1, 8, 3 * 48), device=cuda), 3)  # D = 16
     with pytest.raises(TypeError):
         packed_attention(torch.zeros((1, 8, 3 * 64), device=cuda, dtype=torch.float16), 2)
+
+
+def _clouds(n, P, seed):
+    return torch.from_numpy(np.random.default_rng(seed).normal(size=(n, P, 3)).astype(np.float32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,R,P", [(256, 256, 2000), (37, 13, 300), (1, 5, 1), (17, 1, 2049)])
+def test_chamfer_matches_plain_on_card(cuda, S, R, P):
+    # per element against the plain version on the card: the kernel fuses
+    # multiply-adds and sums in another order, about 1e-7 relative
+    x, y = _clouds(S, P, seed=S).to(cuda), _clouds(R, P, seed=R + 1).to(cuda)
+    before = LAUNCH_COUNTS["chamfer"]
+    got = chamfer_matrix(x, y)
+    want = chamfer_matrix_reference(x, y)
+    assert LAUNCH_COUNTS["chamfer"] == before + 1
+    assert ((got - want).abs() <= 1e-5 * want.abs() + 1e-7).all()
+
+
+@pytest.mark.cuda
+def test_chamfer_padded_points_are_excluded_on_card(cuda):
+    x, y = _clouds(9, 300, seed=1), _clouds(6, 300, seed=2)
+    x[:, 257:] = 1e3   # padding the kernel must not read
+    y[:, 257:] = float("nan")
+    got = chamfer_matrix(x.to(cuda), y.to(cuda), n_pts=257).cpu()
+    want = chamfer_matrix_reference(x[:, :257], y[:, :257])
+    assert ((got - want).abs() <= 1e-5 * want.abs() + 1e-7).all()
+
+
+@pytest.mark.cuda
+def test_chamfer_of_a_cloud_with_itself_is_zero(cuda):
+    x = _clouds(3, 500, seed=3).to(cuda)
+    d = chamfer_matrix(x, x)
+    assert torch.equal(torch.diagonal(d), torch.zeros(3, device=cuda))
+    assert (d.fill_diagonal_(1.0) > 0).all()
+
+
+@pytest.mark.cuda
+def test_chamfer_rejects_unsupported_input(cuda):
+    x = torch.zeros((2, 8, 3), device=cuda)
+    with pytest.raises(TypeError):
+        chamfer_matrix(x.double(), x.double())
+    with pytest.raises(ValueError):
+        chamfer_matrix(x, x.cpu())
+    with pytest.raises(ValueError):
+        chamfer_matrix(x.transpose(0, 1), x.transpose(0, 1))
+    with pytest.raises(ValueError):
+        chamfer_matrix(torch.zeros((1, 20000, 3), device=cuda), torch.zeros((1, 20000, 3), device=cuda))

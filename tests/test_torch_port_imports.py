@@ -1,5 +1,5 @@
 """Port: stands alone from JAX, refuses to fall back to the CPU, and its CLI
-writes the raw batches."""
+writes the raw batches and the solids."""
 
 import ast
 import os
@@ -23,7 +23,9 @@ PACKS = os.path.join(ROOT, "artifacts", "demo_round5", "all160k", "ckpt_packed")
 def test_import_leaves_jax_out():
     code = (
         "import sys, brepgen_tpu_torch, brepgen_tpu_torch.cli.sample_main, "
-        "brepgen_tpu_torch.kernels.attention\n"
+        "brepgen_tpu_torch.cli.eval_main, brepgen_tpu_torch.kernels.attention, "
+        "brepgen_tpu_torch.kernels.chamfer, brepgen_tpu_torch.postprocess, "
+        "brepgen_tpu_torch.geometry, brepgen_tpu_torch.eval, brepgen_tpu_torch.data.augment\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "assert not bad, bad\n"
@@ -87,3 +89,45 @@ def test_cli_writes_raw_batches(tmp_path, monkeypatch):
         assert np.isfinite(out["edge_ncs__1"]).all()
         assert not out["surf_mask__0"][:, 0].any()
         assert not np.array_equal(out["surf_pos__0"], out["surf_pos__1"])
+
+
+class _FixedCascade:
+    """Stands in for ``Cascade``: every batch holds the synthetic cuboid in
+    slot 0 and, in slot 1, the same cuboid with one edge's latents moved off
+    its mate, which the strict postprocess rejects."""
+
+    def __init__(self):
+        from brepgen_tpu.data.synthetic import make_cuboid
+        from test_postprocess import cascade_arrays_from_sample
+
+        data = make_cuboid()
+        one, _, _ = cascade_arrays_from_sample(data)
+        bad = {k: v.copy() for k, v in one.items()}
+        bad["edge_z"][0, 0, 0, 1:] += 0.3
+        self.sample = {k: torch.from_numpy(np.concatenate([one[k], bad[k]])) for k in one}
+        lookup = lambda table: lambda z: torch.from_numpy(
+            table[np.round(z.reshape(len(z), -1)[:, 0].numpy() * 10).astype(int)])
+        self.surf_vae = type("V", (), {"decode": staticmethod(lookup(data["surf_ncs"]))})()
+        self.edge_vae = type("V", (), {"decode": staticmethod(lookup(data["edge_ncs"]))})()
+        self.cfg = cascade.CascadeConfig(batch_size=2)
+        self.device = torch.device("cpu")
+
+    def __call__(self, noise, stage_times=None, after_stage=None):
+        return self.sample
+
+
+def test_num_samples_counts_valid_breps(tmp_path):
+    """``--num_samples N`` stops after N valid B-reps, not N raw samples:
+    with one valid sample per strict batch, 3 need at least 3 batches."""
+    run = sample_main.sample_loop(_FixedCascade(), num_samples=3, save_folder=str(tmp_path),
+                                  recovery=False, workers=2)
+    assert run.produced >= 3 and len(run.batches) >= 3
+    assert run.attempted == 2 * len(run.batches)
+    assert run.strict == run.solid == run.produced == len(run.batches)
+    assert run.failures == {"postprocess failed": len(run.batches)}
+    assert len([f for f in os.listdir(tmp_path) if f.endswith(".step")]) == run.produced
+    # with recovery every sample is valid; slot 1 is rescued at rung 2
+    run = sample_main.sample_loop(_FixedCascade(), num_samples=3, save_folder=str(tmp_path),
+                                  workers=2)
+    assert run.produced == run.attempted >= 3 and not run.failures
+    assert run.rungs == {"recovered: rung 2": run.produced - run.strict}
