@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import math
 import os
+from typing import Optional
 
 import numpy as np
 import torch
@@ -61,6 +62,14 @@ def arch_of_packs(weights_dir: str) -> str:
             return name
     raise ValueError(f"{weights_dir}: denoiser width {width} matches no architecture "
                      f"of {sorted(ARCHS)}")
+
+
+def classes_of_pack(path: str) -> Optional[int]:
+    """The class count of a denoiser pack (the rows of its class embedding),
+    or None for a pack without one."""
+    with np.load(path) as pack:
+        key = next((k for k in pack.files if k.endswith("class_embed/embedding")), None)
+        return None if key is None else int(pack[key].shape[0])
 
 
 def build_denoiser(option: str, use_cf: bool = False, arch: str = "production",

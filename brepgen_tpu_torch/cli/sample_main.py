@@ -1,12 +1,16 @@
-"""Generation CLI: ``python -m brepgen_tpu_torch.cli.sample_main --mode deepcad``.
+"""Generation CLI: ``python -m brepgen_tpu_torch.cli.sample_main --mode abc``.
 
 Port of ``brepgen_tpu/cli/sample_main.py``: builds the four denoisers and the
 two VAEs, fills them from npz packs (``--weights_dir`` holding
 ``surfpos.npz``, ``surfz.npz``, ``edgepos.npz``, ``edgez.npz``,
 ``surf_vae.npz``, ``edge_vae.npz`` as ``train/checkpoint.py`` writes them,
-e.g. a ``ckpt_packed/`` folder; the architecture is read from them) or with
-random weights at the production widths from ``--seed`` when none are given,
-and runs the cascade batch by batch on the card. Each sample is
+e.g. a ``ckpt_packed/`` folder; the architecture and class count are read
+from them) or with random weights at the production widths from ``--seed``
+when none are given, and runs the cascade batch by batch on the card. The
+mode's preset (``eval_config_tpu.yaml``'s values) sets the face and edge
+slots, thresholds, batch size and class label; ``--config`` overrides them
+from a file of that form, and ``--compact`` runs the edge stages on the kept
+faces only. Each sample is
 post-processed on the host (topology recovery, re-decode through the VAEs,
 joint optimization on the card) in a thread pool that overlaps the next
 batch's cascade, and written as STEP + STL to ``--save_folder``. With
@@ -32,7 +36,13 @@ import numpy as np
 import torch
 
 from brepgen_tpu_torch import resolve_device
-from brepgen_tpu_torch.cli.build import arch_of_packs, build_denoiser, build_vae, seed_weights
+from brepgen_tpu_torch.cli.build import (
+    arch_of_packs,
+    build_denoiser,
+    build_vae,
+    classes_of_pack,
+    seed_weights,
+)
 from brepgen_tpu_torch.geometry.brep_build import construct_brep
 from brepgen_tpu_torch.nn.layers import cast_compute
 from brepgen_tpu_torch.postprocess.pipeline import make_padded_decoder, postprocess_single
@@ -55,22 +65,32 @@ def _materialise(make: Callable[[], torch.nn.Module], device: torch.device,
     return seed_weights(module, generator)
 
 
-def init_cascade(mode: str = "deepcad", weights_dir: Optional[str] = None, seed: int = 0,
-                 batch_size: int = 16, dtype: torch.dtype = torch.float32, device: str = "cuda",
-                 step_overrides: Optional[Dict] = None) -> Cascade:
+def init_cascade(mode: str = "abc", weights_dir: Optional[str] = None, seed: int = 0,
+                 batch_size: Optional[int] = None, dtype: torch.dtype = torch.float32,
+                 device: str = "cuda", step_overrides: Optional[Dict] = None,
+                 config: Optional[str] = None) -> Cascade:
     """The cascade for ``mode`` with weights from ``weights_dir`` (npz packs,
-    at the architecture they hold) or seeded from ``seed`` at the production
-    widths, on ``device``."""
+    at the architecture and class count they hold) or seeded from ``seed`` at
+    the production widths, on ``device``. The mode's preset, overridden by
+    the file ``config`` (``eval_config_tpu.yaml``'s form) where given, sets
+    the sizes, thresholds, class label and batch size; ``batch_size`` and
+    ``step_overrides`` override both."""
     dev = resolve_device(device)
     arch = arch_of_packs(weights_dir) if weights_dir else "production"
-    config = CascadeConfig.for_mode(mode, batch_size=batch_size, **(step_overrides or {}))
+    config = CascadeConfig.for_mode(mode, batch_size=batch_size, config=config,
+                                    **(step_overrides or {}))
     gen = torch.Generator(device=dev).manual_seed(seed)
     pack = (lambda name: os.path.join(weights_dir, name)) if weights_dir else (lambda name: None)
-    nets = {
-        stage: _materialise(lambda s=stage: build_denoiser(s, config.use_cf, arch), dev,
-                            pack(f"{stage}.npz"), gen)
-        for stage in DENOISERS
-    }
+
+    def denoiser(path, stage):
+        classes = classes_of_pack(path) if path else None
+        kw = {"num_classes": classes} if classes else {}
+        return build_denoiser(stage, config.use_cf, arch, **kw)
+
+    nets = {}
+    for stage in DENOISERS:
+        path = pack(f"{stage}.npz")
+        nets[stage] = _materialise(lambda: denoiser(path, stage), dev, path, gen)
     surf_vae, edge_vae = (
         _materialise(lambda o=option: build_vae(o, arch), dev, pack(PACKS[option]), gen)
         for option in ("surface", "edge")
@@ -232,16 +252,22 @@ def sample_loop(cascade: Cascade, num_samples: int = 0, max_batches: int = 0, se
     return run
 
 
-def main(argv=None):
+def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--mode", choices=["abc", "deepcad", "furniture"], default="deepcad")
+    p.add_argument("--mode", choices=["abc", "deepcad", "furniture"], default="abc")
+    p.add_argument("--config", default=None,
+                   help="file of eval_config_tpu.yaml's form: its batch_size, z_threshold, "
+                        "bbox_threshold, num_surfaces, num_edges, use_cf and class_label of "
+                        "--mode override the preset (its *_weight keys are not read; pass npz "
+                        "packs with --weights_dir)")
     p.add_argument("--weights_dir", default=None,
                    help="folder of npz packs; random production-width weights from --seed "
                         "when absent")
     p.add_argument("--num_samples", type=int, default=0,
                    help="stop after N valid B-reps (0 = no limit)")
     p.add_argument("--max_batches", type=int, default=0)
-    p.add_argument("--batch_size", type=int, default=16)
+    p.add_argument("--batch_size", type=int, default=None,
+                   help="default: the mode's batch_size (16 in every preset)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--bf16", action="store_true")
     p.add_argument("--pndm_steps", type=int, default=None)
@@ -255,21 +281,39 @@ def main(argv=None):
                    help="reference postprocess semantics: reject any sample whose edge "
                         "pairing is ambiguous instead of running the recovery ladder")
     p.add_argument("--workers", type=int, default=8, help="host postprocess threads")
+    p.add_argument("--compact", action="store_true",
+                   help="run the edge stages on a compacted face bucket after dedup (trained "
+                        "models dedup heavily; cuts the quadratic attention cost ~2x at ABC "
+                        "scale)")
     args = p.parse_args(argv)
     if not (args.num_samples or args.max_batches):
         p.error("give --num_samples or --max_batches")
+    return args
 
+
+def cascade_from_args(args: argparse.Namespace) -> Cascade:
+    """The cascade the command line asks for."""
     overrides = {k: getattr(args, k)
                  for k in ("pndm_steps", "pos_pndm_calls", "ddpm_tail", "fast_steps")
                  if getattr(args, k) is not None}
-    cascade = init_cascade(args.mode, args.weights_dir, args.seed, args.batch_size,
-                           torch.bfloat16 if args.bf16 else torch.float32, args.device,
-                           overrides)
+    if args.compact:
+        overrides["compact"] = True
+    return init_cascade(args.mode, args.weights_dir, args.seed, args.batch_size,
+                        torch.bfloat16 if args.bf16 else torch.float32, args.device,
+                        overrides, args.config)
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    cascade = cascade_from_args(args)
     stage_times: Dict[str, float] = {}
     run = sample_loop(cascade, args.num_samples, args.max_batches, args.seed,
                       args.save_folder or f"samples_{args.mode}", stage_times,
                       recovery=not args.strict, workers=args.workers)
     print(run.report())
+    if cascade.cfg.compact:
+        print(f"edge stages of the last batch on {cascade.last_bucket} of "
+              f"{cascade.cfg.faces} face slots")
     print("cascade seconds per stage: "
           + ", ".join(f"{k} {v:.2f}" for k, v in stage_times.items()))
 

@@ -14,16 +14,19 @@ Port of ``brepgen_tpu/sampling/cascade.py``:
   VAE decode of all face/edge latents in bounded chunks; bboxes divided by 3.
 
 ``fast_steps`` > 0 replaces the protocol with N-step DDIM per stage (plus the
-surfPos late-increase split and its short DDPM tail). Each schedule is one
-Python loop. Every noise draw goes through one noise source, which the caller
-can replace (the tests hand it the JAX package's draws).
+surfPos late-increase split and its short DDPM tail). ``compact`` runs the
+edge stages on the kept faces only (face-token compaction). Each schedule is
+one Python loop. Every noise draw goes through one noise source, which the
+caller can replace (the tests hand it the JAX package's draws).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
+import re
 import time
-from typing import Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import torch
 
@@ -44,12 +47,76 @@ TEXT2INT = {
     "cabinet": 5, "chair": 6, "couch": 7, "lamp": 8, "sofa": 9, "table": 10,
 }
 
-# eval_config.yaml parity (reference eval_config.yaml:1-47)
+# The keys of eval_config_tpu.yaml that sampling reads, per mode. Its
+# *_weight keys name orbax directories, which the port does not load (it
+# takes npz packs from --weights_dir), and save_folder is the CLI's.
+_PRESET = dict(batch_size=16, z_threshold=0.2, bbox_threshold=0.08)
 MODE_PRESETS = {
-    "abc": dict(num_surfaces=50, num_edges=40, use_cf=False),
-    "deepcad": dict(num_surfaces=30, num_edges=30, use_cf=False),
-    "furniture": dict(num_surfaces=60, num_edges=40, use_cf=True),
+    "abc": dict(num_surfaces=50, num_edges=40, use_cf=False, class_label=[], **_PRESET),
+    "deepcad": dict(num_surfaces=30, num_edges=30, use_cf=False, class_label=[], **_PRESET),
+    "furniture": dict(num_surfaces=60, num_edges=40, use_cf=True, class_label="chair",
+                      **_PRESET),
 }
+CONFIG_KEYS = tuple(MODE_PRESETS["abc"])
+
+
+def _yaml_scalar(text: str) -> Any:
+    """One scalar or flow list as ``yaml.safe_load`` reads it (YAML 1.1)."""
+    text = text.strip()
+    if text in ("", "~", "null", "Null", "NULL"):
+        return None
+    if len(text) > 1 and text[0] in "'\"" and text[-1] == text[0]:
+        return text[1:-1]
+    if text.startswith("[") and text.endswith("]"):
+        inner = text[1:-1].strip()
+        return [_yaml_scalar(x) for x in inner.split(",")] if inner else []
+    low = text.lower()
+    if low in ("true", "yes", "on"):
+        return True
+    if low in ("false", "no", "off"):
+        return False
+    for kind in (int, float):
+        try:
+            return kind(text)
+        except ValueError:
+            pass
+    return text
+
+
+def read_eval_config(path: str | os.PathLike) -> Dict[str, Dict[str, Any]]:
+    """The ``mode: / key: value`` form of ``eval_config_tpu.yaml``, read
+    without ``yaml``: {mode: {key: value}}. Comments, blank lines, scalars and
+    flow lists; no other YAML."""
+    modes: Dict[str, Dict[str, Any]] = {}
+    current = None
+    with open(path) as f:
+        for n, line in enumerate(f, 1):
+            body = re.sub(r"(^|\s)#.*", "", line).rstrip()
+            if not body.strip():
+                continue
+            key, sep, value = body.strip().partition(":")
+            if not sep:
+                raise ValueError(f"{path}:{n}: expected 'key: value', got {line.strip()!r}")
+            if not body[0].isspace():
+                if value.strip():
+                    raise ValueError(f"{path}:{n}: a mode takes its keys on the lines below")
+                current = modes.setdefault(key.strip(), {})
+            elif current is None:
+                raise ValueError(f"{path}:{n}: a key outside any mode")
+            else:
+                current[key.strip()] = _yaml_scalar(value)
+    return modes
+
+
+def class_label_id(label: Any) -> int:
+    """The reference's label rule: a class name maps through TEXT2INT, an
+    empty list (no class) is 0; an unknown name raises."""
+    if not isinstance(label, str):
+        return 0
+    if label not in TEXT2INT:
+        raise ValueError(f"unknown class_label {label!r}; one of {sorted(TEXT2INT)}")
+    return TEXT2INT[label]
+
 
 STAGES = ("surfpos", "surfz", "edgepos", "edgez", "decode")
 
@@ -70,23 +137,58 @@ class CascadeConfig:
     ddpm_tail: int = 250
     ddpm_clip: float = 3.0
     fast_steps: int = 0  # > 0: N-step DDIM per stage instead of the protocol
+    # face-token compaction: after face dedup the edge stages run on the kept
+    # faces gathered to the front, padded to a bucket that is a multiple of
+    # compact_granularity, and scatter back. Trained weights dedup the doubled
+    # face set heavily; seeded weights dedup nothing, and then it is a no-op.
+    compact: bool = False
+    compact_granularity: int = 8
 
     @classmethod
-    def for_mode(cls, mode: str, batch_size: int = 16, class_label: str = "uncond", **kw):
-        p = MODE_PRESETS[mode]
-        return cls(
-            batch_size=batch_size,
-            num_surfaces=p["num_surfaces"],
-            num_edges=p["num_edges"],
-            use_cf=p["use_cf"],
-            class_label=TEXT2INT.get(class_label, 0) if p["use_cf"] else 0,
-            **kw,
+    def for_mode(cls, mode: str, batch_size: Optional[int] = None,
+                 config: Optional[str | os.PathLike] = None, **kw):
+        """The preset of ``mode``; the keys of a file of
+        ``eval_config_tpu.yaml``'s form (``config``) override it, and
+        ``batch_size`` and ``kw`` override both."""
+        p = dict(MODE_PRESETS[mode])
+        if config is not None:
+            modes = read_eval_config(config)
+            if mode not in modes:
+                raise ValueError(f"{config}: no entry for mode {mode!r}")
+            p.update({k: v for k, v in modes[mode].items() if k in CONFIG_KEYS})
+        fields = dict(
+            batch_size=int(batch_size or p.get("batch_size", 16)),
+            num_surfaces=int(p["num_surfaces"]),
+            num_edges=int(p["num_edges"]),
+            use_cf=bool(p["use_cf"]),
+            class_label=class_label_id(p.get("class_label")),
+            z_threshold=float(p.get("z_threshold", 0.2)),
+            bbox_threshold=float(p.get("bbox_threshold", 0.08)),
         )
+        fields.update(kw)
+        return cls(**fields)
 
     @property
     def faces(self) -> int:
         """Face slots after the late increase."""
         return self.num_surfaces if self.use_cf else 2 * self.num_surfaces
+
+
+def face_gather(surf_keep: torch.Tensor, ns_c: int):
+    """(gather, scatter) between all face slots [B, ns, ...] and the first
+    ``ns_c`` faces of the stable kept-first order [B, ns_c, ...]; ``scatter(a,
+    fill)`` puts ``fill`` in the slots outside the bucket."""
+    B, ns = surf_keep.shape
+    order = torch.argsort((~surf_keep).to(torch.uint8), dim=1, stable=True)
+    rows = torch.arange(B, device=surf_keep.device)[:, None]
+    idx = order[:, :ns_c]
+
+    def scatter(a: torch.Tensor, fill) -> torch.Tensor:
+        out = torch.full((B, ns, *a.shape[2:]), fill, dtype=a.dtype, device=a.device)
+        out[rows, idx] = a
+        return out
+
+    return (lambda a: a[rows, idx]), scatter
 
 
 class GeneratorNoise:
@@ -114,6 +216,7 @@ class Cascade:
         self.edge_vae = edge_vae
         self.cfg = config
         self.model_calls = dict.fromkeys(STAGES[:4], 0)
+        self.last_bucket = None  # face slots of the last batch's edge stages
         cfg = config
         if cfg.fast_steps > 0:
             self.ddim_plan = make_ddim_plan(cfg.fast_steps)
@@ -144,6 +247,10 @@ class Cascade:
         B = cfg.batch_size
         labels = None
         if cfg.use_cf:
+            classes = net.class_embed.num_embeddings
+            if not 0 <= cfg.class_label < classes:
+                raise ValueError(f"class_label {cfg.class_label} is outside the {classes} "
+                                 f"classes of the {stage} denoiser")
             cond_named = {k: torch.cat([v, v]) for k, v in cond_named.items()}
             if tok_mask is not None:
                 tok_mask = torch.cat([tok_mask, tok_mask])
@@ -195,9 +302,11 @@ class Cascade:
             z = pndm_loop(eps, z, self.pndm_full_plan)
         return surfpos, surf_mask, surf_keep, z
 
-    def s_edgepos(self, noise, surfpos, surfz, surf_mask):
+    def s_edgepos(self, noise, surfpos, surfz, surf_mask, x0=None):
+        """Edge boxes for the ``ns`` faces of ``surfpos`` (all face slots, or a
+        compacted bucket); ``x0`` is the initial noise, drawn here if None."""
         cfg = self.cfg
-        B, ns, ne = cfg.batch_size, cfg.faces, cfg.num_edges
+        B, ns, ne = cfg.batch_size, surfpos.shape[1], cfg.num_edges
         raw = self.stage_eps(
             "edgepos",
             lambda x: {"edgepos": x},
@@ -206,16 +315,16 @@ class Cascade:
             surf_mask.repeat_interleave(ne, dim=1),
         )
         eps = lambda x, t: raw(flatten_face_edge(x), t).reshape(B, ns, ne, 6)
-        x = noise("edgepos", (B, ns, ne, 6))
+        x = noise("edgepos", (B, ns, ne, 6)) if x0 is None else x0
         if self.fast:
             return ddim_loop(eps, x, self.ddim_plan, clip_range=cfg.ddpm_clip)
         x = pndm_loop(eps, x, self.pndm_pos_plan)
         return ddpm_loop(eps, x, self.ddpm_plan,
                          lambda i, shape: noise("edgepos_ddpm", shape, i), cfg.ddpm_clip)
 
-    def s_edgez(self, noise, edgepos, surfpos, surfz, surf_keep):
+    def s_edgez(self, noise, edgepos, surfpos, surfz, surf_keep, z0=None):
         cfg = self.cfg
-        B, ns, ne = cfg.batch_size, cfg.faces, cfg.num_edges
+        B, ns, ne = cfg.batch_size, surfpos.shape[1], cfg.num_edges
         edge_mask = ~dedup_edges_per_face(edgepos, surf_keep, cfg.bbox_threshold)
         raw = self.stage_eps(
             "edgez",
@@ -226,12 +335,24 @@ class Cascade:
             edge_mask.reshape(B, ns * ne),
         )
         eps = lambda x, t: raw(x.reshape(B, ns * ne, 18), t).reshape(B, ns, ne, 18)
-        z = noise("edgez", (B, ns, ne, 18))
+        z = noise("edgez", (B, ns, ne, 18)) if z0 is None else z0
         if self.fast:
             z = ddim_loop(eps, z, self.ddim_plan)
         else:
             z = pndm_loop(eps, z, self.pndm_full_plan)
         return edge_mask, torch.where(edge_mask[..., None], 0.0, z)
+
+    def compact_bucket(self, surf_keep: torch.Tensor) -> int:
+        """Face slots the edge stages run on: every slot, or with ``compact``
+        the most kept faces of any sample rounded up to the granularity (a
+        host sync)."""
+        cfg = self.cfg
+        ns = surf_keep.shape[1]
+        if not cfg.compact:
+            return ns
+        g = cfg.compact_granularity
+        count = int(surf_keep.sum(dim=1).max())
+        return min(ns, max(g, -(-count // g) * g))
 
     def s_decode(self, surfz, edgezv):
         """Decode in bounded chunks (1024 faces, 8192 edges per call)."""
@@ -267,8 +388,25 @@ class Cascade:
         cfg = self.cfg
         surfpos = run("surfpos", self.s_surfpos, noise)
         surfpos, surf_mask, surf_keep, surfz = run("surfz", self.s_surfz, noise, surfpos)
-        edgepos = run("edgepos", self.s_edgepos, noise, surfpos, surfz, surf_mask)
-        edge_mask, edgezv = run("edgez", self.s_edgez, noise, edgepos, surfpos, surfz, surf_keep)
+        ns_c = self.last_bucket = self.compact_bucket(surf_keep)
+        if ns_c < cfg.faces:
+            # the edge stages on the kept faces; initial noise drawn at the
+            # full shape and gathered, so kept-face PNDM and DDIM trajectories
+            # equal the uncompacted run's (the DDPM tail draws at the bucket's
+            # shape); slots outside the bucket get zeros, all edges masked
+            gather, scatter = face_gather(surf_keep, ns_c)
+            sp, sz, mask, keep = map(gather, (surfpos, surfz, surf_mask, surf_keep))
+            full = (cfg.batch_size, cfg.faces, cfg.num_edges)
+            edgepos = run("edgepos", lambda: self.s_edgepos(
+                noise, sp, sz, mask, x0=gather(noise("edgepos", (*full, 6)))))
+            edge_mask, edgezv = run("edgez", lambda: self.s_edgez(
+                noise, edgepos, sp, sz, keep, z0=gather(noise("edgez", (*full, 18)))))
+            edgepos, edge_mask, edgezv = (
+                scatter(edgepos, 0.0), scatter(edge_mask, True), scatter(edgezv, 0.0))
+        else:
+            edgepos = run("edgepos", self.s_edgepos, noise, surfpos, surfz, surf_mask)
+            edge_mask, edgezv = run("edgez", self.s_edgez, noise, edgepos, surfpos, surfz,
+                                    surf_keep)
         surf_ncs, edge_ncs = run("decode", self.s_decode, surfz, edgezv)
         return {
             "surf_pos": surfpos / cfg.bbox_scaled,

@@ -6,15 +6,19 @@ Run from the repository root on a machine with one CUDA card:
     python3 chip_smoke.py [--seed N]
 
 It builds the port's CUDA kernels from ``brepgen_tpu_torch/kernels/csrc`` with
-nvcc (one nvcc per source, started together), holds each against its plain
-PyTorch version on the card, drives the deepcad sampling cascade at the
-production width through the port's own entry points (seeded weights, DDIM
-fast mode) after a small cascade on the card against the same one on the
-CPU, drives the default PNDM + DDPM protocol on the committed all160k packs
-with host postprocess overlapping the cascade (STEP + STL), post-processes
-one batch serially, samples point clouds from the solids and scores them
-against reference clouds drawn from ``--seed`` through the Chamfer kernel.
-It checks shapes, finiteness, masks, solids and kernel launch counts. Each
+nvcc (one nvcc per source, started together) and holds each attention entry
+(K1 packed, K3 per-head, K2 long-set) and the Chamfer kernel against its
+plain PyTorch version on the card. After a small cascade on the card against
+the same one on the CPU it drives the port's own entry points: the deepcad
+and abc cascades at the production width (seeded weights, DDIM fast mode;
+abc in f32 takes the per-head kernel), abc on the committed all160k packs
+without and with face-token compaction, a long set of 8400 tokens through
+the sample CLI's ``--config`` (the long-set kernel), the default PNDM + DDPM
+protocol on the all160k packs with host postprocess overlapping the cascade
+(STEP + STL), one batch post-processed serially, and point clouds from the
+solids scored against reference clouds drawn from ``--seed`` through the
+Chamfer kernel. It checks shapes, finiteness, masks, solids, agreement of
+the compacted and full runs, and kernel launch counts. Each
 phase prints one line with its seconds. The last lines are one JSON object
 of kernel measurements and the result line. Any failure raises and exits
 non-zero; without a CUDA card it exits 1 and prints no result. It imports
@@ -45,7 +49,17 @@ PEAK_BYTES = 3.35e12
 REL = {"float32": 0.0, "bfloat16": 2.0 ** -8}
 ABS = 1e-4
 MAX_ABS = {"float32": 1e-4, "bfloat16": 2e-2}
-KERNEL_SHAPES = ((16, 1800, 768, 12), (4, 1800, 256, 8))  # (B, S, W, H)
+# (B, S, W, H): K1 at the deepcad edge stages (ns x ne = 60 x 30), K3 at ABC
+# (100 x 40), K2 at the long set of phase long set (140 x 60); production and
+# demo widths each
+KERNEL_SHAPES = ((16, 1800, 768, 12), (4, 1800, 256, 8))
+K3_SHAPES = ((16, 4000, 768, 12), (4, 4000, 256, 8))
+K2_SHAPES = ((2, 8400, 768, 12), (4, 8400, 256, 8))
+DEEPCAD_STEPS, ABC_STEPS, LONG_STEPS = 25, 10, 4  # DDIM steps per stage of the seeded paths
+# Compacted against uncompacted abc on the card: the same kernels over other
+# key tiles and matrix shapes, so f32 sums in another order through 20
+# denoiser calls (the small cascade's bar between card and CPU)
+COMPACT_TOL = 1e-3
 # Chamfer matrix: (S, R, P, n_pts); the first is the n=256 eval protocol
 CHAMFER_SHAPES = ((256, 256, 2000, 2000), (37, 13, 300, 300), (37, 13, 300, 257))
 CHAMFER_PROTOCOL = (3000, 1000, 2000)  # one repeat of the eval protocol, timed
@@ -60,15 +74,16 @@ def log(msg: str) -> None:
 
 def make_masks(torch, B: int, S: int, gen) -> "torch.Tensor":
     """Ragged key-padding masks (True = pad): no padding, only slot 0 kept,
-    every key masked, a suffix of 37, and random masks of growing density
-    with slot 0 kept."""
+    every key masked (from B = 3), a suffix of 37 (from B = 4), and random
+    masks of growing density with slot 0 kept."""
     mask = torch.rand((B, S), generator=gen, device="cuda") < torch.linspace(
         0.05, 0.95, B, device="cuda")[:, None]
     mask[:, 0] = False
     mask[0] = False
     mask[1] = True
     mask[1, 0] = False
-    mask[2] = True
+    if B > 2:
+        mask[2] = True
     if B > 3:
         mask[3] = False
         mask[3, S - 37:] = True
@@ -94,57 +109,109 @@ def attention_bound(B, S, W, dtype_name, itemsize):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def phase_kernel(torch, results):
+def hold_to_plain(torch, label, got, want, qkv, mask, W, name):
+    """Hold a kernel's [B, S, W] output per element to its plain version in
+    f32, and its all-masked sample 2 (where B > 2) to the uniform mean of V;
+    raise past the bars. Returns (max abs err, max abs err by rows, text)."""
+    B, S = got.shape[:2]
+    diff = (got - want).abs()
+    over = diff - (REL[name] * want.abs() + ABS)
+    over_uniform = torch.zeros(1, device=got.device)
+    if B > 2:
+        want_uniform = qkv[2, :, 2 * W:].float().mean(0).expand(S, W)
+        over_uniform = (got[2] - want_uniform).abs() - (REL[name] * want_uniform.abs() + ABS)
+    err = diff.max().item()
+    # rows by the number of keys they attend to: many, one (slot 0), none
+    keys = (~mask).sum(1)
+    row_err = diff.amax(dim=(1, 2))
+    errs = {k: row_err[sel].max().item() for k, sel in
+            (("dense", keys > 1), ("one-key", keys == 1), ("all-masked", keys == 0))
+            if sel.any()}
+    tol = f"|err| <= {REL[name]:g}*|plain| + {ABS:g}, max {MAX_ABS[name]:g}"
+    if over.max().item() > 0 or over_uniform.max().item() > 0 or err > MAX_ABS[name]:
+        raise AssertionError(
+            f"{label} {name}: max_abs_err {err:.3e} (rows {errs}), against the uniform mean "
+            f"on the all-masked row {over_uniform.max().item():.3e} over its bound; "
+            f"tolerance {tol}")
+    dense_mag = want[keys > 1].abs().mean().item()
+    text = (f"max_abs_err {err:.3e}; by rows: "
+            + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+            + f" (dense mean |out| {dense_mag:.3e}); tolerance {tol}")
+    return err, errs, text
+
+
+def split_heads(qkv, H):
+    """q, k, v [B, H, S, D] views of qkv [B, S, 3W]."""
+    B, S, W3 = qkv.shape
+    return (a.reshape(B, S, H, W3 // 3 // H).transpose(1, 2) for a in qkv.split(W3 // 3, dim=-1))
+
+
+def phase_attention(torch, kernel, shapes, results):
+    """One attention kernel against its plain version at ``shapes`` (B, S, W,
+    H) in f32 and bf16, timed beside the plain version, SDPA and, for K3
+    and K2, K1 on the same inputs."""
     import torch.nn.functional as F
 
-    from brepgen_tpu_torch.kernels.attention import packed_attention, packed_attention_reference
+    from brepgen_tpu_torch.kernels.attention import (
+        packed_attention,
+        packed_attention_reference,
+        packed_flash_attention,
+        packed_flash_attention_reference,
+    )
+    from brepgen_tpu_torch.kernels.set_attention import set_attention, set_attention_reference
 
+    def per_head(fn):
+        def run(qkv, H, mask):
+            B, S, W3 = qkv.shape
+            q, k, v = (a.contiguous() for a in split_heads(qkv, H))
+            return fn(q, k, v, mask).transpose(1, 2).reshape(B, S, W3 // 3)
+        return run
+
+    fns = {
+        "packed_attention": (packed_attention, packed_attention_reference),
+        "packed_flash_attention": (packed_flash_attention, packed_flash_attention_reference),
+        "set_attention": (per_head(set_attention), per_head(set_attention_reference)),
+    }
+    run_kernel, run_plain = fns[kernel]
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for B, S, W, H in KERNEL_SHAPES:
+    for B, S, W, H in shapes:
         for dtype in (torch.float32, torch.bfloat16):
             name = str(dtype).split(".")[-1]
             qkv = torch.randn((B, S, 3 * W), generator=gen, device="cuda").to(dtype)
             mask = make_masks(torch, B, S, gen)
-            got = packed_attention(qkv, H, mask).float()
-            want = packed_attention_reference(qkv.float(), H, mask)
-            # an all-masked row must be the uniform mean of V over the S keys
-            want_uniform = qkv[2, :, 2 * W:].float().mean(0).expand(S, W)
-            diff = (got - want).abs()
-            over = diff - (REL[name] * want.abs() + ABS)
-            over_uniform = (got[2] - want_uniform).abs() - (REL[name] * want_uniform.abs() + ABS)
-            err = diff.max().item()
-            # rows by the number of keys they attend to: many, one (slot 0), none
-            keys = (~mask).sum(1)
-            row_err = diff.amax(dim=(1, 2))
-            errs = {k: row_err[sel].max().item() for k, sel in
-                    (("dense", keys > 1), ("one-key", keys == 1), ("all-masked", keys == 0))}
-            dense_mag = want[keys > 1].abs().mean().item()
-            tol = f"|err| <= {REL[name]:g}*|plain| + {ABS:g}, max {MAX_ABS[name]:g}"
-            if over.max().item() > 0 or over_uniform.max().item() > 0 or err > MAX_ABS[name]:
-                raise AssertionError(
-                    f"packed_attention B={B} S={S} W={W} H={H} {name}: max_abs_err {err:.3e} "
-                    f"(rows {errs}), against the uniform mean on the all-masked row "
-                    f"{over_uniform.max().item():.3e} over its bound; tolerance {tol}")
-            D = W // H
-            q, k, v = (a.reshape(B, S, H, D).transpose(1, 2) for a in qkv.split(W, dim=-1))
-            bias = torch.where(mask[:, None, None, :], -1e9, 0.0).to(dtype)
+            label = f"kernel {kernel} B={B} S={S} W={W} H={H}"
+            got = run_kernel(qkv, H, mask).float()
+            want = run_plain(qkv.float(), H, mask)
+            err, errs, text = hold_to_plain(torch, label, got, want, qkv, mask, W, name)
+            del got, want
+            torch.cuda.empty_cache()
+            row = dict(B=B, S=S, W=W, H=H, dtype=name, max_abs_err=err, row_max_abs_err=errs)
             reps = 20 if B * S * W > 4e6 else 50
-            ms = time_ms(torch, lambda: packed_attention(qkv, H, mask), reps)
-            plain_ms = time_ms(torch, lambda: packed_attention_reference(qkv, H, mask), 5)
-            lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
-                q, k, v, attn_mask=bias), 5)
-            bound_ms, bound_by = attention_bound(B, S, W, name, qkv.element_size())
-            results.append(dict(B=B, S=S, W=W, H=H, dtype=name, max_abs_err=err,
-                                row_max_abs_err=errs, ms=ms, plain_ms=plain_ms,
-                                library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by))
-            log(f"kernel packed_attention B={B} S={S} W={W} H={H} {name}: "
-                f"max_abs_err {err:.3e}; by rows: dense {errs['dense']:.3e} (mean |out| "
-                f"{dense_mag:.3e}), one-key {errs['one-key']:.3e}, all-masked "
-                f"{errs['all-masked']:.3e}; tolerance {tol}; "
-                f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, "
-                f"bound {bound_ms:.4f} ms ({bound_by})")
-            del qkv, got, want, diff, over, q, k, v, bias
-    torch.cuda.empty_cache()
+            if kernel == "set_attention":
+                # the kernel alone, on the split heads the transformer hands it
+                q, k, v = (a.contiguous() for a in split_heads(qkv, H))
+                row["ms"] = time_ms(torch, lambda: set_attention(q, k, v, mask), reps)
+                del q, k, v
+            else:
+                row["ms"] = time_ms(torch, lambda: run_kernel(qkv, H, mask), reps)
+            row["plain_ms"] = time_ms(torch, lambda: run_plain(qkv, H, mask), 3)
+            q, k, v = split_heads(qkv, H)
+            bias = torch.where(mask[:, None, None, :], -1e9, 0.0).to(dtype)
+            row["library_ms"] = time_ms(torch, lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=bias), 3)
+            del q, k, v, bias
+            if kernel != "packed_attention":
+                row["packed_attention_ms"] = time_ms(
+                    torch, lambda: packed_attention(qkv, H, mask), reps)
+            row["bound_ms"], row["bound_by"] = attention_bound(B, S, W, name, qkv.element_size())
+            results.append(row)
+            k1 = (f", K1 {row['packed_attention_ms']:.4f} ms" if "packed_attention_ms" in row
+                  else "")
+            log(f"{label} {name}: {text}; kernel {row['ms']:.4f} ms, plain "
+                f"{row['plain_ms']:.4f} ms, sdpa {row['library_ms']:.4f} ms{k1}, bound "
+                f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+            del qkv, mask
+            torch.cuda.empty_cache()
 
 
 def chamfer_bound(S, R, P, n):
@@ -288,10 +355,15 @@ def check_batch(np, out, B, ns, ne):
     return int(surf_keep.sum()), int(edge_keep.sum())
 
 
-def drive(torch, np, label, cascade, expected_edge_calls, batches=1, save_folder=None):
+ATTENTION_KERNELS = ("packed_attention", "packed_flash_attention", "set_attention")
+
+
+def drive(torch, np, label, cascade, expected_edge_calls, batches=1, save_folder=None,
+          kernel="packed_attention"):
     """Run ``batches`` batches through the user's entry point, with host
     postprocess into ``save_folder`` when one is given; check the batches
-    and the kernel counts (reset just before, read just after)."""
+    and the kernel counts (reset just before, read just after): ``kernel``
+    once per layer of every edge-stage call, no other attention kernel."""
     from brepgen_tpu_torch.cli.sample_main import sample_loop
     from brepgen_tpu_torch.kernels import LAUNCH_COUNTS, reset_launch_counts
 
@@ -307,13 +379,14 @@ def drive(torch, np, label, cascade, expected_edge_calls, batches=1, save_folder
         run = sample_loop(cascade, max_batches=batches, seed=0, save_folder=folder,
                           stage_times=stage_times, postprocess=save_folder is not None,
                           recovery=True, workers=4,
-                          after_stage=lambda s: events.append((s, LAUNCH_COUNTS["packed_attention"])))
+                          after_stage=lambda s: events.append((s, LAUNCH_COUNTS[kernel])))
         counts = dict(LAUNCH_COUNTS)
         with np.load(os.path.join(folder, "batches.npz")) as saved:
             want = sorted(f"{k}__{b}" for b in range(batches) for k in run.batches[0])
             if sorted(saved.files) != want:
                 raise AssertionError(f"batches.npz keys {saved.files}")
-    launches = counts["packed_attention"]
+    launches = counts[kernel]
+    others = {k: counts[k] for k in ATTENTION_KERNELS if k != kernel and counts[k]}
     kept = [check_batch(np, b, cfg.batch_size, cfg.faces, cfg.num_edges) for b in run.batches]
     edge_calls = sum(cascade.model_calls[s] for s in ("edgepos", "edgez")) - calls0
     if edge_calls != batches * expected_edge_calls:
@@ -324,16 +397,19 @@ def drive(torch, np, label, cascade, expected_edge_calls, batches=1, save_folder
         per_stage[stage] = per_stage.get(stage, 0) + count - prev
         prev = count
     off_edge = {k: v for k, v in per_stage.items() if not k.startswith("edge") and v}
-    if off_edge or launches != layers * edge_calls or prev != launches:
-        raise AssertionError(f"{label}: {launches} kernel launches (by stage {per_stage}), "
-                             f"expected {layers} x {edge_calls} edge-stage calls, none elsewhere")
+    if off_edge or others or launches != layers * edge_calls or prev != launches:
+        raise AssertionError(f"{label}: {launches} {kernel} launches (by stage {per_stage}), "
+                             f"expected {layers} x {edge_calls} edge-stage calls, none elsewhere; "
+                             f"other attention kernels {others}")
     if counts["chamfer"]:
         raise AssertionError(f"{label}: the sampling path launched the chamfer kernel")
     cascade_s = sum(stage_times.values())
+    bucket = cascade.last_bucket
     log(f"{label}: {batches} batch(es) of B={cfg.batch_size} ns={cfg.faces} "
-        f"ne={cfg.num_edges} S={cfg.faces * cfg.num_edges}; edge-stage calls {edge_calls}; "
-        f"packed_attention launches {launches} = {layers} layers x {edge_calls} (other stages "
-        f"0); kept (faces, edges) per batch {kept}; cascade stage seconds "
+        f"ne={cfg.num_edges} S={cfg.faces * cfg.num_edges}; edge stages on {bucket} face slots "
+        f"(S={bucket * cfg.num_edges}); edge-stage calls {edge_calls}; "
+        f"{kernel} launches {launches} = {layers} layers x {edge_calls} (other stages and "
+        f"attention kernels 0); kept (faces, edges) per batch {kept}; cascade stage seconds "
         + ", ".join(f"{k} {v:.2f}" for k, v in stage_times.items())
         + f"; total {run.seconds:.2f} s, {run.seconds / batches:.2f} s per batch")
     if save_folder is not None:
@@ -341,10 +417,11 @@ def drive(torch, np, label, cascade, expected_edge_calls, batches=1, save_folder
             f"threads): " + run.report().replace("\n", "; "))
         if run.attempted != batches * cfg.batch_size:
             raise AssertionError(f"{label}: {run.attempted} samples post-processed")
-    return dict(path=label, B=cfg.batch_size, S=cfg.faces * cfg.num_edges, W=net.width,
-                H=net.encoder.layer_0.attn.num_heads, dtype=str(net.dtype).split(".")[-1],
-                batches=batches, launches=launches, seconds=run.seconds,
-                cascade_seconds=cascade_s, produced=run.produced,
+    return dict(path=label, kernel=kernel, B=cfg.batch_size, S=cfg.faces * cfg.num_edges,
+                edge_faces=bucket, W=net.width, H=net.encoder.layer_0.attn.num_heads,
+                dtype=str(net.dtype).split(".")[-1], batches=batches, launches=launches,
+                edge_calls=edge_calls, seconds=run.seconds, cascade_seconds=cascade_s,
+                stage_seconds=stage_times, produced=run.produced,
                 attempted=run.attempted), run
 
 
@@ -437,6 +514,72 @@ def phase_eval(torch, np, stl_root, work, seed, times=3):
     return dict(clouds=n_fake, launches=launches["chamfer"], seconds=t2 - t1, metrics=avg)
 
 
+def phase_abc_compact(torch, np):
+    """Mode abc on the all160k packs, batch 4, DDIM, without and with
+    face-token compaction: the same noise, so the kept faces' outputs agree."""
+    from brepgen_tpu_torch.cli.sample_main import init_cascade
+
+    runs = {}
+    for compact in (False, True):
+        cascade = init_cascade("abc", PACKS, batch_size=4, device="cuda",
+                               step_overrides={"fast_steps": ABC_STEPS, "compact": compact})
+        label = f"abc {'compact' if compact else 'full'} (all160k packs, DDIM {ABC_STEPS})"
+        path, run = drive(torch, np, label, cascade, 2 * ABC_STEPS)
+        runs[compact] = (path, run.batches[0])
+        faces = cascade.cfg.faces
+        del cascade
+    (full_path, full), (comp_path, comp) = runs[False], runs[True]
+    if not comp_path["edge_faces"] < faces:
+        raise AssertionError(f"abc compact: bucket {comp_path['edge_faces']} of {faces} slots")
+    if not np.array_equal(full["surf_mask"], comp["surf_mask"]):
+        raise AssertionError("abc compact: the face masks differ")
+    keep = ~full["surf_mask"]
+    if not np.array_equal(full["edge_mask"][keep], comp["edge_mask"][keep]):
+        raise AssertionError("abc compact: the edge masks of kept faces differ")
+    errs = {k: float(np.abs(full[k][keep] - comp[k][keep]).max())
+            for k in ("surf_pos", "surf_z", "edge_pos", "edge_z", "edge_v", "edge_ncs")}
+    if max(errs.values()) > COMPACT_TOL:
+        raise AssertionError(f"abc compact: kept-face outputs differ {errs} > {COMPACT_TOL:g}")
+    edge_s = {c: p["stage_seconds"]["edgepos"] + p["stage_seconds"]["edgez"]
+              for c, p in ((False, full_path), (True, comp_path))}
+    log(f"abc compact: bucket {comp_path['edge_faces']} of {faces} face slots (kept faces per "
+        f"sample {keep.sum(1).tolist()}); edge-stage seconds {edge_s[False]:.2f} full, "
+        f"{edge_s[True]:.2f} compacted; kept-face max abs diff {max(errs.values()):.3e} "
+        f"(tolerance {COMPACT_TOL:g}; by output {errs})")
+    return [full_path, dict(comp_path, kept_face_max_abs_diff=errs)]
+
+
+def phase_long_set(torch, np, work):
+    """A config file of eval_config_tpu.yaml's form with 70 x 60 face and edge
+    slots, through the sample CLI's --config: 140 x 60 = 8400 tokens."""
+    from brepgen_tpu_torch.cli.sample_main import cascade_from_args, parse_args
+
+    config = os.path.join(work, "long_set.yaml")
+    keys = dict(batch_size=2, z_threshold=0.2, bbox_threshold=0.08, num_surfaces=70,
+                num_edges=60, use_cf=False, class_label=[])
+    with open(config, "w") as f:
+        f.write("abc:\n" + "".join(f"  {k}: {v}\n" for k, v in keys.items()))
+    args = parse_args(["--mode", "abc", "--config", config, "--fast_steps", str(LONG_STEPS),
+                       "--max_batches", "1"])
+    cascade = cascade_from_args(args)
+    cfg = cascade.cfg
+    if (cfg.batch_size, cfg.faces * cfg.num_edges) != (2, 8400):
+        raise AssertionError(f"long set: --config gave {cfg}")
+    path, _ = drive(torch, np, f"long set (--config 70 x 60, production width, seeded, DDIM "
+                    f"{LONG_STEPS})", cascade, 2 * LONG_STEPS, kernel="packed_flash_attention")
+    return path
+
+
+def kernel_entry(name, source, replaces, launches, shapes, paths, **extra):
+    """A line of the kernels JSON: the numbers of the first (main) shape."""
+    main_shape = shapes[0]
+    return dict(name=name, route="cuda", source=source, replaces=replaces, launches=launches,
+                max_abs_err=max(r["max_abs_err"] for r in shapes if "max_abs_err" in r),
+                ms=main_shape["ms"], plain_ms=main_shape["plain_ms"],
+                bound_ms=main_shape["bound_ms"], bound_by=main_shape["bound_by"],
+                library_ms=main_shape.get("library_ms"), **extra, shapes=shapes, paths=paths)
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--seed", type=int, default=0,
@@ -463,7 +606,7 @@ def main(argv=None) -> int:
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     t = time.perf_counter()
-    kernels = ("packed_attention", "chamfer")
+    kernels = ("packed_attention", "set_attention", "chamfer")
     with ThreadPoolExecutor(len(kernels)) as pool:  # one nvcc per source, together
         list(pool.map(_build.load, kernels))
     build_s = time.perf_counter() - t
@@ -477,10 +620,13 @@ def main(argv=None) -> int:
             if "registers" in ln or "spill" in ln or "entry function" in ln:
                 log(f"  ptxas: {ln.strip()}")
 
-    results = []
-    t = time.perf_counter()
-    phase_kernel(torch, results)
-    log(f"phase kernel packed_attention done in {time.perf_counter() - t:.2f} s")
+    shapes = {k: [] for k in ATTENTION_KERNELS}
+    for kernel, kernel_shapes in (("packed_attention", KERNEL_SHAPES),
+                                  ("set_attention", K3_SHAPES),
+                                  ("packed_flash_attention", K2_SHAPES)):
+        t = time.perf_counter()
+        phase_attention(torch, kernel, kernel_shapes, shapes[kernel])
+        log(f"phase kernel {kernel} done in {time.perf_counter() - t:.2f} s")
 
     t = time.perf_counter()
     chamfer_shapes = phase_chamfer(torch, torch.Generator(device="cuda").manual_seed(args.seed))
@@ -490,18 +636,40 @@ def main(argv=None) -> int:
     phase_small(torch)
     log(f"phase small done in {time.perf_counter() - t:.2f} s")
 
+    paths = {k: [] for k in ATTENTION_KERNELS}
     t = time.perf_counter()
-    fast = 50
     cascade = init_cascade("deepcad", seed=0, batch_size=16, device="cuda",
-                           step_overrides={"fast_steps": fast})
+                           step_overrides={"fast_steps": DEEPCAD_STEPS})
     log(f"cascade: production weights seeded in {time.perf_counter() - t:.2f} s")
-    path, _ = drive(torch, np, "cascade (production width, seeded, DDIM 50)", cascade, 2 * fast)
-    paths = [path]
+    path, _ = drive(torch, np, f"cascade (production width, seeded, DDIM {DEEPCAD_STEPS})",
+                    cascade, 2 * DEEPCAD_STEPS)
+    paths["packed_attention"].append(path)
     del cascade
     torch.cuda.empty_cache()
     log(f"phase cascade done in {time.perf_counter() - t:.2f} s")
 
+    t = time.perf_counter()
+    cascade = init_cascade("abc", seed=0, batch_size=16, device="cuda",
+                           step_overrides={"fast_steps": ABC_STEPS})
+    log(f"abc: production weights seeded in {time.perf_counter() - t:.2f} s")
+    path, _ = drive(torch, np, f"abc (production width, seeded, f32, DDIM {ABC_STEPS})",
+                    cascade, 2 * ABC_STEPS, kernel="set_attention")
+    paths["set_attention"].append(path)
+    del cascade
+    torch.cuda.empty_cache()
+    log(f"phase abc done in {time.perf_counter() - t:.2f} s")
+
+    t = time.perf_counter()
+    paths["packed_attention"] += phase_abc_compact(torch, np)
+    torch.cuda.empty_cache()
+    log(f"phase abc compact done in {time.perf_counter() - t:.2f} s")
+
     with tempfile.TemporaryDirectory() as work:
+        t = time.perf_counter()
+        paths["packed_flash_attention"].append(phase_long_set(torch, np, work))
+        torch.cuda.empty_cache()
+        log(f"phase long set done in {time.perf_counter() - t:.2f} s")
+
         t = time.perf_counter()
         cascade = init_cascade("deepcad", PACKS, batch_size=4, device="cuda")
         log(f"protocol: all160k packs loaded in {time.perf_counter() - t:.2f} s")
@@ -509,7 +677,7 @@ def main(argv=None) -> int:
         expected = (cfg.pos_pndm_calls + cfg.ddpm_tail
                     + len(make_pndm_plan(cfg.pndm_steps).t_model))
         path, run = drive(torch, np, "protocol (all160k packs, PNDM + DDPM)", cascade, expected)
-        paths.append(path)
+        paths["packed_attention"].append(path)
         log(f"phase protocol done in {time.perf_counter() - t:.2f} s")
 
         t = time.perf_counter()
@@ -521,58 +689,47 @@ def main(argv=None) -> int:
         # the user's path: host postprocess of batch k overlaps the cascade of
         # batch k + 1, against the same work one after the other
         t = time.perf_counter()
+        serial = path["seconds"] + solids["seconds"]
         path, _ = drive(torch, np, "protocol with postprocess (all160k packs, 4 threads)",
                         cascade, expected, batches=2,
                         save_folder=os.path.join(work, "solids", "overlapped"))
-        paths.append(path)
-        serial = paths[-2]["seconds"] + solids["seconds"]
+        paths["packed_attention"].append(path)
         overlapped = path["seconds"] / path["batches"]
         solids.update(seconds_per_batch_overlapped=overlapped, seconds_per_batch_serial=serial)
         log(f"phase overlap done in {time.perf_counter() - t:.2f} s; seconds per batch: "
             f"{overlapped:.2f} with postprocess overlapping the next cascade (cascade stages "
             f"{path['cascade_seconds'] / path['batches']:.2f} of it), {serial:.2f} one after "
-            f"the other (cascade {paths[-2]['seconds']:.2f} + postprocess "
+            f"the other (cascade {serial - solids['seconds']:.2f} + postprocess "
             f"{solids['seconds']:.2f})")
 
         t = time.perf_counter()
         evaluation = phase_eval(torch, np, os.path.join(work, "solids"), work, args.seed)
         log(f"phase eval done in {time.perf_counter() - t:.2f} s")
 
-    # the top-level numbers are those of the main shape (packed_attention:
-    # the full-width f32 shape; chamfer: the n=256 eval protocol) and of the
-    # main path's run; "shapes" has every measured shape, "paths" every run
-    main_shape, chamfer_main = results[0], chamfer_shapes[0]
-    print(json.dumps({"kernels": [{
-        "name": "packed_attention",
-        "route": "cuda",
-        "source": "brepgen_tpu_torch/kernels/csrc/packed_attention.cu",
-        "replaces": "brepgen_tpu/kernels/attention.py:150",
-        "launches": paths[0]["launches"],
-        "max_abs_err": main_shape["max_abs_err"],
-        "ms": main_shape["ms"],
-        "plain_ms": main_shape["plain_ms"],
-        "bound_ms": main_shape["bound_ms"],
-        "bound_by": main_shape["bound_by"],
-        "library_ms": main_shape["library_ms"],
-        "shapes": results,
-        "paths": paths,
-    }, {
-        "name": "chamfer",
-        "route": "cuda",
-        "source": "brepgen_tpu_torch/kernels/csrc/chamfer.cu",
-        "replaces": "brepgen_tpu/kernels/chamfer.py:47",
-        "launches": evaluation["launches"],
-        "max_abs_err": max(r["max_abs_err"] for r in chamfer_shapes if "max_abs_err" in r),
-        "ms": chamfer_main["ms"],
-        "plain_ms": chamfer_main["plain_ms"],
-        "bound_ms": chamfer_main["bound_ms"],
-        "bound_by": chamfer_main["bound_by"],
-        "library_ms": None,
-        "yardstick_ms": chamfer_main["yardstick_ms"],
-        "shapes": chamfer_shapes,
-        "paths": [dict(path="eval (STL -> clouds -> JSD/MMD/COV)", **evaluation),
-                  dict(path="solids (protocol batch 0, serial)", **solids)],
-    }]}), flush=True)
+    # the top-level numbers are those of the main shape (the first of each
+    # kernel's shapes: production width in f32; chamfer: the n=256 eval
+    # protocol) and launches those of the kernel's first driven path; "shapes"
+    # has every measured shape, "paths" every run
+    csrc = "brepgen_tpu_torch/kernels/csrc/"
+    print(json.dumps({"kernels": [
+        kernel_entry("packed_attention", csrc + "packed_attention.cu",
+                     "brepgen_tpu/kernels/attention.py:150",
+                     paths["packed_attention"][0]["launches"], shapes["packed_attention"],
+                     paths["packed_attention"]),
+        kernel_entry("packed_flash_attention", csrc + "packed_attention.cu",
+                     "brepgen_tpu/kernels/attention.py:261",
+                     paths["packed_flash_attention"][0]["launches"],
+                     shapes["packed_flash_attention"], paths["packed_flash_attention"]),
+        kernel_entry("set_attention", csrc + "set_attention.cu",
+                     "brepgen_tpu/kernels/attention.py:47",
+                     paths["set_attention"][0]["launches"], shapes["set_attention"],
+                     paths["set_attention"]),
+        kernel_entry("chamfer", csrc + "chamfer.cu", "brepgen_tpu/kernels/chamfer.py:47",
+                     evaluation["launches"], chamfer_shapes,
+                     [dict(path="eval (STL -> clouds -> JSD/MMD/COV)", **evaluation),
+                      dict(path="solids (protocol batch 0, serial)", **solids)],
+                     yardstick_ms=chamfer_shapes[0]["yardstick_ms"]),
+    ]}), flush=True)
     log(f"all phases passed in {time.perf_counter() - T0:.2f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

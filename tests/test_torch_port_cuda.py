@@ -1,5 +1,6 @@
-"""Port: the CUDA kernels (K1 packed attention, K4 Chamfer matrix) against
-their plain versions, on the card.
+"""Port: the CUDA kernels (K1 packed attention, K2 its long-set entry, K3
+per-head set attention, K4 Chamfer matrix) against their plain versions, on
+the card.
 
 Marked ``cuda``: they skip without a card. This file imports no JAX, so it
 also runs on a machine without it (``--noconftest`` skips the JAX set-up of
@@ -13,8 +14,14 @@ import pytest
 import torch
 
 from brepgen_tpu_torch.kernels import LAUNCH_COUNTS
-from brepgen_tpu_torch.kernels.attention import packed_attention, packed_attention_reference
+from brepgen_tpu_torch.kernels.attention import (
+    packed_attention,
+    packed_attention_reference,
+    packed_flash_attention,
+    packed_flash_attention_reference,
+)
 from brepgen_tpu_torch.kernels.chamfer import chamfer_matrix, chamfer_matrix_reference
+from brepgen_tpu_torch.kernels.set_attention import set_attention, set_attention_reference
 
 
 def _inputs(B, S, W, seed):
@@ -24,7 +31,8 @@ def _inputs(B, S, W, seed):
     mask[:, 0] = False
     mask[0] = False
     mask[1, 1:] = True  # only slot 0 unmasked
-    mask[2] = True      # every key masked
+    if B > 2:
+        mask[2] = True  # every key masked
     return qkv, mask
 
 
@@ -57,6 +65,79 @@ def test_kernel_rejects_unsupported_input(cuda):
         packed_attention(torch.zeros((1, 8, 3 * 48), device=cuda), 3)  # D = 16
     with pytest.raises(TypeError):
         packed_attention(torch.zeros((1, 8, 3 * 64), device=cuda, dtype=torch.float16), 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rel", [(torch.float32, 0.0), (torch.bfloat16, 2.0 ** -8)])
+@pytest.mark.parametrize("S,D,H", [(4000, 64, 12), (4000, 32, 8), (1, 64, 2), (63, 32, 2),
+                                   (65, 64, 2), (8193, 32, 1)])
+def test_set_attention_matches_plain_on_card(cuda, dtype, rel, S, D, H):
+    # K3 against its plain version in f32 on the same inputs; the batch holds
+    # a sample with only slot 0 unmasked and one with every key masked
+    B = 4
+    qkv, mask = _inputs(B, S, H * D, seed=S + D)
+    q, k, v = (torch.from_numpy(a).to(cuda, dtype).reshape(B, S, H, D).transpose(1, 2)
+               .contiguous() for a in np.split(qkv, 3, axis=-1))
+    mask = torch.from_numpy(mask).to(cuda)
+    before = LAUNCH_COUNTS["set_attention"]
+    got = set_attention(q, k, v, mask).float()
+    want = set_attention_reference(q.float(), k.float(), v.float(), mask)
+    assert LAUNCH_COUNTS["set_attention"] == before + 1
+    assert ((got - want).abs() <= rel * want.abs() + 1e-4).all()
+    uniform = v[2].float().mean(1, keepdim=True).expand(H, S, D)
+    assert ((got[2] - uniform).abs() <= rel * uniform.abs() + 1e-4).all()
+
+
+@pytest.mark.cuda
+def test_set_attention_rejects_unsupported_input(cuda):
+    z = lambda *shape, dtype=torch.float32: torch.zeros(shape, device=cuda, dtype=dtype)
+    with pytest.raises(ValueError):
+        set_attention(z(1, 2, 8, 48), z(1, 2, 8, 48), z(1, 2, 8, 48))  # D = 48
+    with pytest.raises(TypeError):
+        f16 = z(1, 2, 8, 64, dtype=torch.float16)
+        set_attention(f16, f16, f16)
+    with pytest.raises(TypeError):
+        set_attention(z(1, 2, 8, 64), z(1, 2, 8, 64, dtype=torch.bfloat16), z(1, 2, 8, 64))
+    with pytest.raises(ValueError):
+        set_attention(z(1, 2, 8, 64), z(1, 2, 8, 64), z(1, 2, 8, 64),
+                      torch.zeros((1, 9), dtype=torch.bool, device=cuda))  # mask [B, S+1]
+    with pytest.raises(ValueError):
+        set_attention(z(1, 2, 8, 64), z(1, 2, 8, 64), z(1, 2, 8, 64),
+                      torch.zeros((1, 8), dtype=torch.uint8, device=cuda))  # not bool
+    with pytest.raises(ValueError):
+        x = z(1, 8, 2, 64).transpose(1, 2)  # not contiguous
+        set_attention(x, x, x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rel", [(torch.float32, 0.0), (torch.bfloat16, 2.0 ** -8)])
+@pytest.mark.parametrize("B,S,W,H", [(2, 8400, 768, 12), (4, 8400, 256, 8), (4, 8193, 64, 2),
+                                     (4, 65, 64, 2)])
+def test_packed_flash_matches_plain_on_card(cuda, dtype, rel, B, S, W, H):
+    # K2 against its own plain version (K/V in 2048-key chunks) in f32
+    qkv, mask = _inputs(B, S, W, seed=S + W)
+    qkv = torch.from_numpy(qkv).to(cuda, dtype)
+    mask = torch.from_numpy(mask).to(cuda)
+    before = dict(LAUNCH_COUNTS)
+    got = packed_flash_attention(qkv, H, mask).float()
+    want = packed_flash_attention_reference(qkv.float(), H, mask)
+    assert LAUNCH_COUNTS["packed_flash_attention"] == before["packed_flash_attention"] + 1
+    assert LAUNCH_COUNTS["packed_attention"] == before["packed_attention"]
+    assert ((got - want).abs() <= rel * want.abs() + 1e-4).all()
+    if B > 2:
+        uniform = qkv[2, :, 2 * W:].float().mean(0).expand(S, W)
+        assert ((got[2] - uniform).abs() <= rel * uniform.abs() + 1e-4).all()
+
+
+@pytest.mark.cuda
+def test_packed_flash_rejects_unsupported_input(cuda):
+    with pytest.raises(ValueError):
+        packed_flash_attention(torch.zeros((1, 8, 3 * 48), device=cuda), 1)  # D = 48
+    with pytest.raises(TypeError):
+        packed_flash_attention(torch.zeros((1, 8, 3 * 64), device=cuda, dtype=torch.float16), 1)
+    with pytest.raises(ValueError):
+        packed_flash_attention(torch.zeros((2, 8, 3 * 64), device=cuda), 1,
+                               torch.zeros((2, 7), dtype=torch.bool, device=cuda))
 
 
 def _clouds(n, P, seed):
