@@ -12,7 +12,8 @@ from __future__ import annotations
 
 import math
 import os
-from typing import Optional
+import pickle
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -72,6 +73,24 @@ def classes_of_pack(path: str) -> Optional[int]:
         return None if key is None else int(pack[key].shape[0])
 
 
+def vae_channels_of_pack(path: str, option: str) -> Tuple[int, ...]:
+    """The block widths of a VAE pack (``option`` "surface" or "edge"), read
+    from the output width of the first res block of each encoder level; the
+    strict load then checks every other shape."""
+    fmt = "encoder/down{}_res0/conv1/kernel" if option == "surface" else \
+        "encoder/down{}/res0/conv1/kernel"
+    channels = []
+    with np.load(path) as pack:
+        while True:
+            key = next((k for k in pack.files if k.endswith(fmt.format(len(channels)))), None)
+            if key is None:
+                break
+            channels.append(int(pack[key].shape[-1]))
+    if not channels:
+        raise ValueError(f"{path}: no {option} VAE encoder in the pack")
+    return tuple(channels)
+
+
 def build_denoiser(option: str, use_cf: bool = False, arch: str = "production",
                    **kw) -> nn.Module:
     """The edge stages attend through the CUDA kernel, the short surf stages
@@ -106,3 +125,51 @@ def seed_weights(module: nn.Module, generator: torch.Generator) -> nn.Module:
             if m.bias is not None:
                 m.bias.uniform_(-bound, bound, generator=generator)
     return module
+
+
+def auto_remat(option: str, batch_size: int, max_face: int, max_edge: int) -> bool:
+    """Per-layer recompute for production training, as
+    ``brepgen_tpu/cli/build.py:auto_remat``: on once B x tokens reaches
+    32768 (the edge stages at their reference batch sizes: deepcad edgez at
+    B=128, S=600 is 76800), where the saved activations of the 12 layers
+    outgrow device memory."""
+    tokens = max_face * max_edge if option in ("edgepos", "edgez") else max_face
+    return batch_size * tokens >= 32768
+
+
+def uid_to_path(data_dir: str, uid: str) -> str:
+    """DeepCAD/ABC pkls are sharded into 10k-id folders; furniture is flat
+    (reference dataset.py:94-100)."""
+    try:
+        shard = str(math.floor(int(uid.split(".")[0]) / 10000)).zfill(4)
+        return os.path.join(data_dir, shard, uid)
+    except ValueError:
+        return os.path.join(data_dir, uid)
+
+
+def load_split_list(list_path: str, split: str) -> List[str]:
+    with open(list_path, "rb") as f:
+        return pickle.load(f)[split]
+
+
+FURNITURE_LABELS = {
+    "bathtub": 0, "bed": 1, "bench": 2, "bookshelf": 3, "cabinet": 4,
+    "chair": 5, "couch": 6, "lamp": 7, "sofa": 8, "table": 9,
+}
+
+
+def resolve_samples(data_dir: str, list_path: str,
+                    split: str) -> Tuple[List[str], Optional[List[int]]]:
+    """(paths, class labels or None): labels only for the furniture layout,
+    whose uids are ``<class>/<name>``."""
+    paths, labels = [], []
+    furniture = False
+    for uid in load_split_list(list_path, split):
+        paths.append(uid_to_path(data_dir, uid))
+        try:
+            int(uid.split(".")[0])
+            labels.append(-1)
+        except ValueError:
+            furniture = True
+            labels.append(FURNITURE_LABELS[uid.split("/")[0]])
+    return paths, (labels if furniture else None)

@@ -3,7 +3,8 @@
 Port of ``brepgen_tpu/diffusion/ddpm.py``: 1000 train timesteps, linear betas
 1e-4 -> 0.02, epsilon prediction, "fixed_small" posterior variance and the
 predicted x0 clipped to +/-3 while sampling. Plans are numpy arrays equal to
-the JAX plans; the loop takes its noise from the caller.
+the JAX plans; the loop takes its noise from the caller. ``make_ddpm_tables``
+and ``add_noise`` are the training side (``ddpm.py:42-71``).
 """
 
 from __future__ import annotations
@@ -20,6 +21,32 @@ NoiseFn = Callable[[int, tuple], torch.Tensor]  # (step, shape) -> N(0, 1) draw
 def make_betas_linear(num_train_timesteps: int = 1000, beta_start: float = 1e-4,
                       beta_end: float = 0.02) -> np.ndarray:
     return np.linspace(beta_start, beta_end, num_train_timesteps, dtype=np.float64)
+
+
+class DDPMTables(NamedTuple):
+    """Closed-form diffusion tables (computed in float64, stored float32)."""
+
+    betas: torch.Tensor           # [T]
+    alphas: torch.Tensor          # [T]
+    alphas_cumprod: torch.Tensor  # [T]
+    num_train_timesteps: int
+
+
+def make_ddpm_tables(num_train_timesteps: int = 1000, beta_start: float = 1e-4,
+                     beta_end: float = 0.02) -> DDPMTables:
+    betas = make_betas_linear(num_train_timesteps, beta_start, beta_end)
+    alphas = 1.0 - betas
+    f32 = lambda a: torch.tensor(a, dtype=torch.float32)  # noqa: E731
+    return DDPMTables(f32(betas), f32(alphas), f32(np.cumprod(alphas)), num_train_timesteps)
+
+
+def add_noise(tables: DDPMTables, x0: torch.Tensor, noise: torch.Tensor,
+              t: torch.Tensor) -> torch.Tensor:
+    """q(x_t | x_0): sqrt(a-bar_t) x0 + sqrt(1 - a-bar_t) eps, ``t`` [B] int,
+    broadcast over x0's trailing dims."""
+    acp = tables.alphas_cumprod.to(x0.device)[t.to(x0.device)]
+    bshape = (x0.shape[0],) + (1,) * (x0.dim() - 1)
+    return torch.sqrt(acp).reshape(bshape) * x0 + torch.sqrt(1.0 - acp).reshape(bshape) * noise
 
 
 class DDPMStepCoeffs(NamedTuple):

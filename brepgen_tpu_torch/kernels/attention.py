@@ -10,6 +10,13 @@ already streams K/V in 64-key shared-memory tiles with a running max and
 normaliser, at any S, so both entries launch that one kernel, each with its
 own launch count. The transformer picks the entry by length
 (``nn/transformer.py:attention_route``).
+
+Kernel K5, ``_packed_bwd_kernel``, is the backward of K1:
+``csrc/packed_attention_bwd.cu``, launched by ``packed_attention_backward``.
+Every entry is differentiable: ``packed_attention`` runs under an autograd
+function whose forward is K1 and whose backward is K5; the long-set entry
+recomputes its backward through the plain version under autograd, as JAX's
+``_packed_bwd`` does (training never reaches those lengths).
 """
 
 from __future__ import annotations
@@ -95,6 +102,44 @@ def packed_flash_attention_reference(
     return (acc / l).to(qkv.dtype).transpose(1, 2).reshape(B, S, W)
 
 
+def packed_attention_backward_reference(
+    qkv: torch.Tensor, dout: torch.Tensor, num_heads: int,
+    key_padding_mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Plain PyTorch version of K5: the gradient of ``packed_attention``,
+    [B, S, 3W] x dO [B, S, W] -> dqkv [B, S, 3W], step by step in f32 and
+    returned in the input type.
+
+    With P = softmax(s QK^T + bias): dV = P^T dO, dP = dO V^T,
+    dL = P o (dP - rowsum(dP o P)), dQ = s dL K, dK = s dL^T Q, as
+    ``_packed_bwd_kernel`` computes them.
+    """
+    B, S, W3 = qkv.shape
+    W = W3 // 3
+    D = W // num_heads
+    split = lambda a: a.reshape(B, S, num_heads, D).transpose(1, 2).float()  # noqa: E731
+    q, k, v = (split(a) for a in qkv.split(W, dim=-1))
+    g = split(dout)
+    scale = 1.0 / math.sqrt(D)
+    logits = torch.einsum("bhqd,bhkd->bhqk", q, k) * scale
+    if key_padding_mask is not None:
+        logits = logits + torch.where(key_padding_mask[:, None, None, :], NEG_INF, 0.0)
+    p = torch.softmax(logits, dim=-1)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, g)
+    dp = torch.einsum("bhqd,bhkd->bhqk", g, v)
+    dl = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    dq = torch.einsum("bhqk,bhkd->bhqd", dl, k) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", dl, q) * scale
+    merge = lambda a: a.transpose(1, 2).reshape(B, S, W)  # noqa: E731
+    return torch.cat([merge(dq), merge(dk), merge(dv)], dim=-1).to(qkv.dtype)
+
+
+def _on_card(t: torch.Tensor) -> bool:
+    """Whether an entry launches its kernel for ``t`` (else the plain
+    version runs: a CPU tensor)."""
+    return t.device.type != "cpu"
+
+
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = _build.load("packed_attention")
@@ -108,10 +153,22 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def _launch(name: str, qkv: torch.Tensor, num_heads: int,
-            key_padding_mask: Optional[torch.Tensor]) -> torch.Tensor:
-    """Check the input, launch ``packed_attention.cu`` and count the launch
-    under ``name``."""
+@functools.cache
+def _backward_library() -> ctypes.CDLL:
+    lib = _build.load("packed_attention_bwd")
+    fn = lib.packed_attention_backward
+    fn.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_float, ctypes.c_void_p,
+    ]
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def _check(name: str, qkv: torch.Tensor, num_heads: int,
+           key_padding_mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """Check what the kernels take; returns the mask as uint8 [B, S]."""
     if qkv.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {qkv.device}")
     if qkv.dim() != 3 or qkv.shape[-1] % 3:
@@ -133,6 +190,16 @@ def _launch(name: str, qkv: torch.Tensor, num_heads: int,
         if key_padding_mask.device != qkv.device:
             raise ValueError(f"{name}: key_padding_mask is on another device")
         mask = key_padding_mask.contiguous().view(torch.uint8)
+    return mask
+
+
+def _launch(name: str, qkv: torch.Tensor, num_heads: int,
+            key_padding_mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """Check the input, launch ``packed_attention.cu`` and count the launch
+    under ``name``."""
+    mask = _check(name, qkv, num_heads, key_padding_mask)
+    B, S, W3 = qkv.shape
+    W = W3 // 3
     out = torch.empty((B, S, W), dtype=qkv.dtype, device=qkv.device)
     with torch.cuda.device(qkv.device):
         rc = _library().packed_attention_forward(
@@ -146,17 +213,111 @@ def _launch(name: str, qkv: torch.Tensor, num_heads: int,
     return out
 
 
-def packed_attention(
-    qkv: torch.Tensor, num_heads: int, key_padding_mask: Optional[torch.Tensor] = None
+def packed_attention_backward(
+    qkv: torch.Tensor, dout: torch.Tensor, num_heads: int,
+    key_padding_mask: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """K1: [B, S, 3W] -> [B, S, W] through the CUDA kernel.
+    """K5: the gradient dqkv [B, S, 3W] of ``packed_attention`` at ``qkv``
+    for the output gradient ``dout`` [B, S, W], through the CUDA kernel
+    (two launches, counted as one call).
 
     A tensor on the CPU takes the plain version; a CUDA tensor launches the
     kernel or raises.
     """
-    if qkv.device.type == "cpu":
-        return packed_attention_reference(qkv, num_heads, key_padding_mask)
-    return _launch("packed_attention", qkv, num_heads, key_padding_mask)
+    if not _on_card(qkv):
+        return packed_attention_backward_reference(qkv, dout, num_heads, key_padding_mask)
+    return _launch_backward(qkv, dout, num_heads, key_padding_mask)
+
+
+def _launch_backward(qkv: torch.Tensor, dout: torch.Tensor, num_heads: int,
+                     key_padding_mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """Check the input, launch ``packed_attention_bwd.cu`` and count it."""
+    name = "packed_attention_backward"
+    mask = _check(name, qkv, num_heads, key_padding_mask)
+    B, S, W3 = qkv.shape
+    W = W3 // 3
+    if dout.shape != (B, S, W) or dout.dtype != qkv.dtype or dout.device != qkv.device:
+        raise ValueError(f"{name}: dout must be [B, S, W] = {(B, S, W)} of {qkv.dtype} on "
+                         f"{qkv.device}, got {tuple(dout.shape)} of {dout.dtype} on {dout.device}")
+    if not dout.is_contiguous() or dout.data_ptr() % 16:
+        raise ValueError(f"{name}: dout must be contiguous and 16-byte aligned")
+    stats = torch.empty((B, num_heads, S, 3), dtype=torch.float32, device=qkv.device)
+    dqkv = torch.empty_like(qkv)
+    with torch.cuda.device(qkv.device):
+        rc = _backward_library().packed_attention_backward(
+            qkv.data_ptr(), dout.data_ptr(), mask.data_ptr(), stats.data_ptr(),
+            dqkv.data_ptr(), B, S, W, num_heads, _DTYPES[qkv.dtype],
+            1.0 / math.sqrt(W // num_heads), torch.cuda.current_stream().cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {rc}")
+    LAUNCH_COUNTS[name] += 1
+    return dqkv
+
+
+def _forward(name: str, qkv: torch.Tensor, num_heads: int,
+             key_padding_mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """The entry ``name`` without autograd: its kernel on the card, its plain
+    version on the CPU."""
+    if _on_card(qkv):
+        return _launch(name, qkv, num_heads, key_padding_mask)
+    plain = (packed_attention_reference if name == "packed_attention"
+             else packed_flash_attention_reference)
+    return plain(qkv, num_heads, key_padding_mask)
+
+
+def recompute_grads(fn, inputs, dout: torch.Tensor, *args):
+    """Gradients of ``fn(*inputs, *args)`` for ``dout``, recomputed through
+    ``fn`` under autograd (the backward of the entries whose TPU kernels
+    had none: ``_bwd`` and ``_packed_bwd``'s long-set branch in JAX)."""
+    with torch.enable_grad():
+        xs = [x.detach().requires_grad_() for x in inputs]
+        return torch.autograd.grad(fn(*xs, *args), xs, dout)
+
+
+class PackedAttentionFn(torch.autograd.Function):
+    """K1 forward, K5 backward."""
+
+    @staticmethod
+    def forward(ctx, qkv, num_heads, key_padding_mask):
+        ctx.num_heads = num_heads
+        ctx.save_for_backward(qkv, key_padding_mask)
+        return _forward("packed_attention", qkv, num_heads, key_padding_mask)
+
+    @staticmethod
+    def backward(ctx, dout):
+        qkv, mask = ctx.saved_tensors
+        return packed_attention_backward(qkv, dout.contiguous(), ctx.num_heads, mask), None, None
+
+
+class PackedFlashAttentionFn(torch.autograd.Function):
+    """K2 forward; backward recomputed through the plain version."""
+
+    @staticmethod
+    def forward(ctx, qkv, num_heads, key_padding_mask):
+        ctx.num_heads = num_heads
+        ctx.save_for_backward(qkv, key_padding_mask)
+        return _forward("packed_flash_attention", qkv, num_heads, key_padding_mask)
+
+    @staticmethod
+    def backward(ctx, dout):
+        qkv, mask = ctx.saved_tensors
+        (dqkv,) = recompute_grads(packed_attention_reference, [qkv], dout, ctx.num_heads, mask)
+        return dqkv, None, None
+
+
+def packed_attention(
+    qkv: torch.Tensor, num_heads: int, key_padding_mask: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """K1: [B, S, 3W] -> [B, S, W] through the CUDA kernel; with grad
+    enabled its backward is K5.
+
+    A tensor on the CPU takes the plain versions; a CUDA tensor launches the
+    kernels or raises.
+    """
+    if torch.is_grad_enabled():
+        return PackedAttentionFn.apply(qkv, num_heads, key_padding_mask)
+    return _forward("packed_attention", qkv, num_heads, key_padding_mask)
 
 
 def packed_flash_attention(
@@ -164,11 +325,12 @@ def packed_flash_attention(
 ) -> torch.Tensor:
     """K2, the long-set entry: [B, S, 3W] -> [B, S, W] through the same
     streaming CUDA kernel as K1 (its grid, 64-bit offsets and shared memory do
-    not depend on S).
+    not depend on S). With grad enabled its backward recomputes through the
+    plain version.
 
     A tensor on the CPU takes K2's plain version; a CUDA tensor launches the
     kernel or raises.
     """
-    if qkv.device.type == "cpu":
-        return packed_flash_attention_reference(qkv, num_heads, key_padding_mask)
-    return _launch("packed_flash_attention", qkv, num_heads, key_padding_mask)
+    if torch.is_grad_enabled():
+        return PackedFlashAttentionFn.apply(qkv, num_heads, key_padding_mask)
+    return _forward("packed_flash_attention", qkv, num_heads, key_padding_mask)

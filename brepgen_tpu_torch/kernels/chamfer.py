@@ -83,8 +83,12 @@ def chamfer_matrix(x: torch.Tensor, y: torch.Tensor,
     launch for the whole matrix.
 
     Tensors on the CPU take the plain version; CUDA tensors launch the
-    kernel or raise.
+    kernel or raise. Forward only, as the TPU kernel: an input that requires
+    grad raises.
     """
+    if torch.is_grad_enabled() and (x.requires_grad or y.requires_grad):
+        raise RuntimeError("chamfer_matrix: forward only; it has no backward (call it "
+                           "under torch.no_grad() or on detached inputs)")
     for name, t in (("x", x), ("y", y)):
         if t.dim() != 3 or t.shape[-1] != 3:
             raise ValueError(f"chamfer_matrix: {name} must be [N, P, 3], got {tuple(t.shape)}")

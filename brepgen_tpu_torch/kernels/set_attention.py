@@ -6,7 +6,9 @@ same masked attention as the packed kernel, on split heads q, k, v
 [B, H, S, D] -> [B, H, S, D]; scale 1/sqrt(D) of the true D; a key-padding
 bias of -1e9; f32 logits, softmax and accumulator. The transformer routes the
 mid-range set lengths here (``nn/transformer.py:attention_route``). The
-kernel is ``csrc/set_attention.cu``.
+kernel is ``csrc/set_attention.cu``. With grad enabled the backward
+recomputes through the plain version under autograd, as JAX's ``_bwd``
+recomputes through XLA.
 """
 
 from __future__ import annotations
@@ -20,7 +22,8 @@ import torch
 
 from brepgen_tpu_torch.kernels import LAUNCH_COUNTS
 from brepgen_tpu_torch.kernels import _build
-from brepgen_tpu_torch.kernels.attention import _DTYPES, _HEAD_DIMS, NEG_INF
+from brepgen_tpu_torch.kernels import attention as _attention
+from brepgen_tpu_torch.kernels.attention import _DTYPES, _HEAD_DIMS, NEG_INF, recompute_grads
 
 
 def set_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -51,15 +54,43 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
+class SetAttentionFn(torch.autograd.Function):
+    """K3 forward; backward recomputed through the plain version."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, key_padding_mask):
+        ctx.save_for_backward(q, k, v, key_padding_mask)
+        return _forward(q, k, v, key_padding_mask)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, mask = ctx.saved_tensors
+        return (*recompute_grads(set_attention_reference, [q, k, v], dout, mask), None)
+
+
 def set_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   key_padding_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """[B, H, S, D] x 3 -> [B, H, S, D] through the CUDA kernel.
+    """[B, H, S, D] x 3 -> [B, H, S, D] through the CUDA kernel; with grad
+    enabled its backward recomputes through the plain version.
 
     A tensor on the CPU takes the plain version; a CUDA tensor launches the
     kernel or raises.
     """
-    if q.device.type == "cpu":
+    if torch.is_grad_enabled():
+        return SetAttentionFn.apply(q, k, v, key_padding_mask)
+    return _forward(q, k, v, key_padding_mask)
+
+
+def _forward(q, k, v, key_padding_mask):
+    """K3 without autograd: the kernel on the card, the plain version on the
+    CPU."""
+    if not _attention._on_card(q):
         return set_attention_reference(q, k, v, key_padding_mask)
+    return _launch(q, k, v, key_padding_mask)
+
+
+def _launch(q, k, v, key_padding_mask):
+    """Check the input, launch ``set_attention.cu`` and count the launch."""
     if q.device.type != "cuda":
         raise ValueError(f"set_attention: unsupported device {q.device}")
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:

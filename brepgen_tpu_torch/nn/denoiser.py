@@ -2,7 +2,10 @@
 
 Port of ``brepgen_tpu/nn/denoiser.py``: per-stream MLP embedders summed with
 a sinusoidal time embedding (and a class embedding when class-conditional),
-the set transformer, and an MLP head whose output is f32.
+the set transformer, and an MLP head whose output is f32. With ``train`` the
+transformer's dropout is on and a class-conditional net drops 10% of its
+labels to class 0, the unconditional class (``denoiser.py:131-136``); both
+draw from a ``torch.Generator``, or the label draws come from the caller.
 
 Stream layouts (B = batch, nf = max faces, ne = max edges/face):
   surfpos: streams (surfpos[B,nf,6])                          -> eps[B,nf,6]
@@ -39,18 +42,21 @@ class DenoiserTransformer(nn.Module):
     def __init__(self, stream_dims: Tuple[int, ...], stream_names: Tuple[str, ...],
                  out_dim: int, use_cf: bool = False, num_classes: int = 11,
                  width: int = 768, num_heads: int = 12, ffn_width: int = 1024,
-                 num_layers: int = 12, attn_impl: str = "plain"):
+                 num_layers: int = 12, attn_impl: str = "plain", dropout: float = 0.1,
+                 label_dropout: float = 0.1, remat=False):
         super().__init__()
         self.stream_dims = dict(zip(stream_names, stream_dims))
         self.stream_names = tuple(stream_names)
         self.width = width
         self.use_cf = use_cf
+        self.label_dropout = label_dropout
         for name, dim in self.stream_dims.items():
             setattr(self, f"{name}_embed", MLPEmbedder(dim, width))
         self.time_embed = MLPEmbedder(width, width)
         if use_cf:
             self.class_embed = nn.Embedding(num_classes, width)
-        self.encoder = TransformerEncoder(width, num_heads, ffn_width, num_layers, attn_impl)
+        self.encoder = TransformerEncoder(width, num_heads, ffn_width, num_layers, attn_impl,
+                                          dropout, remat)
         self.head = MLPEmbedder(width, width, out_dim)
 
     @property
@@ -69,7 +75,12 @@ class DenoiserTransformer(nn.Module):
     def denoise(self, noisy_streams: Dict[str, torch.Tensor], timesteps,
                 cond_embed: Optional[torch.Tensor] = None,
                 key_padding_mask: Optional[torch.Tensor] = None,
-                class_label: Optional[torch.Tensor] = None) -> torch.Tensor:
+                class_label: Optional[torch.Tensor] = None, train: bool = False,
+                generator: Optional[torch.Generator] = None,
+                label_u: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``train``: dropout on (masks from ``generator``) and, with classes,
+        a label whose U(0, 1) draw is <= ``label_dropout`` becomes 0; the
+        draws are ``label_u`` [B] when given, else from ``generator``."""
         tokens = self.embed_streams(noisy_streams)
         B = tokens.shape[0]
         if cond_embed is not None:
@@ -78,13 +89,22 @@ class DenoiserTransformer(nn.Module):
         t_emb = self.time_embed(sincos_embedding(t, self.width).to(self.dtype))
         tokens = tokens + t_emb[:, None, :]
         if self.use_cf:
-            tokens = tokens + self.class_embed(class_label.reshape(B))[:, None, :]
-        return self.head(self.encoder(tokens, key_padding_mask)).float()
+            label = class_label.reshape(B)
+            if train:
+                if label_u is None:
+                    label_u = torch.rand((B,), generator=generator)
+                label = torch.where(label_u.to(label.device) <= self.label_dropout, 0, label)
+            tokens = tokens + self.class_embed(label)[:, None, :].to(tokens.dtype)
+        out = self.encoder(tokens, key_padding_mask, train=train, generator=generator)
+        return self.head(out).float()
 
     def forward(self, streams: Sequence[torch.Tensor], timesteps, key_padding_mask=None,
-                class_label=None) -> torch.Tensor:
+                class_label=None, train: bool = False,
+                generator: Optional[torch.Generator] = None,
+                label_u: Optional[torch.Tensor] = None) -> torch.Tensor:
         named = dict(zip(self.stream_names, streams))
-        return self.denoise(named, timesteps, None, key_padding_mask, class_label)
+        return self.denoise(named, timesteps, None, key_padding_mask, class_label, train,
+                            generator, label_u)
 
 
 def make_surfpos_net(use_cf: bool = False, **kw) -> DenoiserTransformer:

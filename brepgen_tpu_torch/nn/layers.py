@@ -60,6 +60,33 @@ class MLPEmbedder(nn.Module):
         return self.fc2(F.silu(self.norm(self.fc1(x))))
 
 
+class DiagonalGaussian:
+    """Diagonal Gaussian posterior over channels-last moments [..., 2C] =
+    (mean, logvar), logvar clipped to [-30, 20]
+    (``brepgen_tpu/nn/layers.py:55-82``)."""
+
+    def __init__(self, moments: torch.Tensor):
+        self.mean, logvar = moments.chunk(2, dim=-1)
+        self.logvar = logvar.clamp(-30.0, 20.0)
+        self.std = torch.exp(0.5 * self.logvar)
+        self.var = torch.exp(self.logvar)
+
+    def sample(self, generator: Optional[torch.Generator] = None,
+               eps: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """mean + std * eps, eps ~ N(0, 1) from ``generator`` unless given."""
+        if eps is None:
+            eps = torch.randn(self.mean.shape, generator=generator).to(self.mean.device)
+        return self.mean + self.std * eps.to(self.mean.dtype)
+
+    def mode(self) -> torch.Tensor:
+        return self.mean
+
+    def kl(self) -> torch.Tensor:
+        """KL(q || N(0, I)) summed over all non-batch dims -> [B]."""
+        dims = tuple(range(1, self.mean.dim()))
+        return 0.5 * torch.sum(self.mean ** 2 + self.var - 1.0 - self.logvar, dim=dims)
+
+
 def cast_compute(module: nn.Module, dtype: torch.dtype) -> nn.Module:
     """Run ``module`` in ``dtype`` (e.g. bf16): dense, conv and embedding
     parameters take the type, norms keep f32 parameters and statistics."""

@@ -2,11 +2,19 @@
 
 Port of ``brepgen_tpu/nn/transformer.py``: pre-LN, ReLU FFN, a final
 LayerNorm, the fused ``qkv`` Dense, a key-padding mask (True = pad) and no
-positional encoding. Inference only: no dropout. Attention runs through the
-CUDA kernels (``attn_impl="kernel"``, the edge stages) or plain torch ops
+positional encoding. Dropout (0.1) follows the attention, the ReLU and fc2
+while training, as in ``brepgen_tpu/nn/transformer.py:113-121``; its masks
+come from an explicit ``torch.Generator``. Attention runs through the CUDA
+kernels (``attn_impl="kernel"``, the edge stages) or plain torch ops
 (``"plain"``, the short surf stages), as the JAX package routes the edge
 stages to Pallas and the surf stages to XLA. On the kernel path the set
-length picks the kernel by the JAX layer's rule (``attention_route``).
+length picks the kernel by the JAX layer's rule (``attention_route``); every
+route is differentiable (K1's backward is kernel K5).
+
+``remat`` True or "full" recomputes each layer in the backward
+(``torch.utils.checkpoint``; the recompute launches K1 again). Each layer's
+dropout masks come from a seed drawn before the layer runs, so the recompute
+draws the same masks.
 """
 
 from __future__ import annotations
@@ -15,6 +23,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from brepgen_tpu_torch.kernels import attention as kattn
@@ -78,30 +87,75 @@ class MultiHeadSelfAttention(nn.Module):
         return self.proj(self.attn(self.qkv(x), self.num_heads, key_padding_mask))
 
 
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
+    """Zero each element with probability ``rate`` and scale the rest by
+    1 / (1 - rate), as flax's ``nn.Dropout``; the mask from ``generator``."""
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 class EncoderLayer(nn.Module):
-    def __init__(self, width: int, num_heads: int, ffn_width: int, attn_impl: str = "plain"):
+    def __init__(self, width: int, num_heads: int, ffn_width: int, attn_impl: str = "plain",
+                 dropout: float = 0.1):
         super().__init__()
+        self.dropout = dropout
         self.norm1 = LayerNorm(width)
         self.attn = MultiHeadSelfAttention(width, num_heads, attn_impl)
         self.norm2 = LayerNorm(width)
         self.fc1 = nn.Linear(width, ffn_width)
         self.fc2 = nn.Linear(ffn_width, width)
 
-    def forward(self, x, key_padding_mask=None):
-        x = x + self.attn(self.norm1(x), key_padding_mask)
-        return x + self.fc2(F.relu(self.fc1(self.norm2(x))))
+    def forward(self, x, key_padding_mask=None, seed: Optional[int] = None):
+        """``seed`` (training) seeds this layer's dropout masks; None runs
+        without dropout."""
+        if seed is None or self.dropout == 0.0:
+            drop = lambda h: h  # noqa: E731
+        else:
+            gen = torch.Generator(device=x.device)
+            gen.manual_seed(seed)
+            drop = lambda h: dropout(h, self.dropout, gen)  # noqa: E731
+        x = x + drop(self.attn(self.norm1(x), key_padding_mask))
+        return x + drop(self.fc2(drop(F.relu(self.fc1(self.norm2(x))))))
+
+
+REMATS = (False, True, "full")
 
 
 class TransformerEncoder(nn.Module):
     def __init__(self, width: int = 768, num_heads: int = 12, ffn_width: int = 1024,
-                 num_layers: int = 12, attn_impl: str = "plain"):
+                 num_layers: int = 12, attn_impl: str = "plain", dropout: float = 0.1,
+                 remat=False):
         super().__init__()
+        if remat == "dots":
+            raise ValueError(
+                "remat='dots' (selective checkpointing: save the dense outputs, recompute "
+                "the rest) is not ported yet (ROADMAP queue 1); use True/'full' or False")
+        if remat not in REMATS:
+            raise ValueError(f"remat must be one of {REMATS}, got {remat!r}")
         self.num_layers = num_layers
+        self.dropout = dropout
+        self.remat = bool(remat)
         for i in range(num_layers):  # attribute names are the flax scopes
-            setattr(self, f"layer_{i}", EncoderLayer(width, num_heads, ffn_width, attn_impl))
+            setattr(self, f"layer_{i}",
+                    EncoderLayer(width, num_heads, ffn_width, attn_impl, dropout))
         self.final_norm = LayerNorm(width)
 
-    def forward(self, x: torch.Tensor, key_padding_mask: Optional[torch.Tensor] = None):
+    def forward(self, x: torch.Tensor, key_padding_mask: Optional[torch.Tensor] = None,
+                train: bool = False, generator: Optional[torch.Generator] = None):
+        """``train`` turns dropout on, with one seed per layer drawn from
+        ``generator``; with ``remat`` and grad enabled each layer is
+        recomputed in the backward."""
+        drop = train and self.dropout > 0.0
+        if drop and generator is None:
+            raise ValueError("train=True needs a generator for the dropout masks")
         for i in range(self.num_layers):
-            x = getattr(self, f"layer_{i}")(x, key_padding_mask)
+            layer = getattr(self, f"layer_{i}")
+            seed = None
+            if drop:
+                seed = int(torch.randint(0, 2 ** 62, (1,), generator=generator))
+            if self.remat and torch.is_grad_enabled():
+                x = torch.utils.checkpoint.checkpoint(layer, x, key_padding_mask, seed,
+                                                      use_reentrant=False)
+            else:
+                x = layer(x, key_padding_mask, seed)
         return self.final_norm(x)

@@ -16,7 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from brepgen_tpu_torch.nn.layers import GroupNorm
+from brepgen_tpu_torch.nn.layers import DiagonalGaussian, GroupNorm
 from brepgen_tpu_torch.nn.vae2d import group_norm
 
 # Bicubic antialiasing FIR taps (k-diffusion / diffusers "cubic" kernel).
@@ -200,6 +200,10 @@ class EdgeVAE(nn.Module):
         """[N, 32, 3] -> posterior moments (mean, logvar) [N, 4, 6], f32."""
         h = self.quant_conv(self.encoder(x.to(self.dtype).transpose(1, 2)))
         return h.transpose(1, 2).float()
+
+    def encode(self, x: torch.Tensor) -> DiagonalGaussian:
+        """[N, 32, 3] -> the posterior over the latent."""
+        return DiagonalGaussian(self.encode_moments(x))
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:
         """[N, 4, 3] -> [N, 32, 3], f32."""

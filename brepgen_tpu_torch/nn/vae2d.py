@@ -14,7 +14,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from brepgen_tpu_torch.nn.layers import GroupNorm
+from brepgen_tpu_torch.nn.layers import DiagonalGaussian, GroupNorm
 
 
 def _groups(channels: int, target: int = 32) -> int:
@@ -182,6 +182,10 @@ class SurfVAE(nn.Module):
         """[N, 32, 32, 3] -> posterior moments (mean, logvar) [N, 4, 4, 6], f32."""
         h = self.quant_conv(self.encoder(x.to(self.dtype).permute(0, 3, 1, 2)))
         return h.permute(0, 2, 3, 1).float()
+
+    def encode(self, x: torch.Tensor) -> DiagonalGaussian:
+        """[N, 32, 32, 3] -> the posterior over the latent."""
+        return DiagonalGaussian(self.encode_moments(x))
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:
         """[N, 4, 4, 3] -> [N, 32, 32, 3], f32."""

@@ -7,8 +7,8 @@ Run from the repository root on a machine with one CUDA card:
 
 It builds the port's CUDA kernels from ``brepgen_tpu_torch/kernels/csrc`` with
 nvcc (one nvcc per source, started together) and holds each attention entry
-(K1 packed, K3 per-head, K2 long-set) and the Chamfer kernel against its
-plain PyTorch version on the card. After a small cascade on the card against
+(K1 packed, K3 per-head, K2 long-set), the Chamfer kernel and the packed
+attention's backward (K5) against its plain PyTorch version on the card. After a small cascade on the card against
 the same one on the CPU it drives the port's own entry points: the deepcad
 and abc cascades at the production width (seeded weights, DDIM fast mode;
 abc in f32 takes the per-head kernel), abc on the committed all160k packs
@@ -17,8 +17,12 @@ the sample CLI's ``--config`` (the long-set kernel), the default PNDM + DDPM
 protocol on the all160k packs with host postprocess overlapping the cascade
 (STEP + STL), one batch post-processed serially, and point clouds from the
 solids scored against reference clouds drawn from ``--seed`` through the
-Chamfer kernel. It checks shapes, finiteness, masks, solids, agreement of
-the compacted and full runs, and kernel launch counts. Each
+Chamfer kernel; then the training CLI trains the edgez denoiser at the
+production width in bf16 (K1 forward and K5 backward in every layer of every
+step), its pack is reloaded, and one f32 step through the kernels is held
+against the same step through plain attention. It checks shapes,
+finiteness, masks, solids, agreement of the compacted and full runs, the
+gradients, and kernel launch counts. Each
 phase prints one line with its seconds. The last lines are one JSON object
 of kernel measurements and the result line. Any failure raises and exits
 non-zero; without a CUDA card it exits 1 and prints no result. It imports
@@ -66,6 +70,27 @@ CHAMFER_PROTOCOL = (3000, 1000, 2000)  # one repeat of the eval protocol, timed
 # |kernel - plain| <= CHAMFER_REL * |plain| + CHAMFER_ABS per element: the
 # kernel fuses multiply-adds and sums its means in another order (~1e-7 rel)
 CHAMFER_REL, CHAMFER_ABS = 1e-5, 1e-7
+# K5, the packed attention's backward: (B, S, W, H) at the deepcad edgez
+# training shape (train_ldm.sh: batch 128, 30 faces x 20 edges) and at a demo
+# width; held per element to its plain version in f32 with the forward's
+# REL/ABS bars. Not to MAX_ABS: a gradient sums over S rows (dV of the one key
+# of a one-key sample is the sum of 600 rows of dO, about 60), so its bf16
+# rounding alone exceeds 2e-2.
+K5_SHAPES = ((128, 600, 768, 12), (64, 160, 256, 8))
+# Phase train: the CLI trains edgez at production width in bf16 on synthetic
+# solids at the deepcad training shape (train_ldm.sh:21-25), one step per
+# epoch (256 solids, batch 128, drop_last), one validation pass at the end
+TRAIN_EPOCHS = 6
+TRAIN_ARGS = ("--option", "edgez", "--bf16", "--max_face", "30", "--max_edge", "20",
+              "--batch_size", "128", "--synthetic", "256", "--num_workers", "0")
+# The same f32 edgez step through the kernels and through plain attention:
+# the difference of all gradients within GRAD_REL of their norm. Not per
+# element: the two forwards differ by about 1e-7, which flips the ReLU of
+# pre-activations near zero, so single gradient elements of the FFN weights
+# move by a token's whole contribution (measured 7e-3 of a tensor's largest
+# gradient, global relative difference 2.0e-4, at B=16 on the H100)
+GRAD_BATCH = 16
+GRAD_REL = 1e-3
 
 
 def log(msg: str) -> None:
@@ -212,6 +237,213 @@ def phase_attention(torch, kernel, shapes, results):
                 f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
             del qkv, mask
             torch.cuda.empty_cache()
+
+
+def backward_bound(B, S, W, dtype_name, itemsize):
+    """The five products of the backward (dV, dP, dQ, dK and the logits
+    recomputed), 10*B*S^2*W operations, against qkv and dO read once and
+    dqkv written once."""
+    flops = 10.0 * B * S * S * W
+    nbytes = B * S * 7 * W * itemsize + B * S
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype_name] * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def phase_backward(torch, results):
+    """K5 against its plain version at ``K5_SHAPES`` in f32 and bf16, timed
+    beside the plain version, the SDPA backward (torch.autograd.grad through
+    scaled_dot_product_attention with the -1e9 float mask; its forward runs
+    outside the timed region) and K1's forward on the same inputs."""
+    import torch.nn.functional as F
+
+    from brepgen_tpu_torch.kernels.attention import (
+        packed_attention,
+        packed_attention_backward,
+        packed_attention_backward_reference,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for B, S, W, H in K5_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[-1]
+            qkv = torch.randn((B, S, 3 * W), generator=gen, device="cuda").to(dtype)
+            dout = torch.randn((B, S, W), generator=gen, device="cuda").to(dtype)
+            mask = make_masks(torch, B, S, gen)
+            label = f"kernel packed_attention_backward B={B} S={S} W={W} H={H}"
+            got = packed_attention_backward(qkv, dout, H, mask).float()
+            want = packed_attention_backward_reference(qkv.float(), dout.float(), H, mask)
+            diff = (got - want).abs()
+            err = diff.max().item()
+            over = (diff - (REL[name] * want.abs() + ABS)).max().item()
+            keys = (~mask).sum(1)
+            row_err = diff.amax(dim=(1, 2))
+            errs = {k: row_err[sel].max().item() for k, sel in
+                    (("dense", keys > 1), ("one-key", keys == 1), ("all-masked", keys == 0))
+                    if sel.any()}
+            tol = f"|err| <= {REL[name]:g}*|plain| + {ABS:g}"
+            if over > 0 or not torch.isfinite(got).all():
+                raise AssertionError(f"{label} {name}: max_abs_err {err:.3e} (rows {errs}), "
+                                     f"{over:.3e} over the bound; tolerance {tol}")
+            mag = want.abs().mean().item()
+            del got, want, diff
+            torch.cuda.empty_cache()
+            row = dict(B=B, S=S, W=W, H=H, dtype=name, max_abs_err=err, row_max_abs_err=errs)
+            row["ms"] = time_ms(torch, lambda: packed_attention_backward(qkv, dout, H, mask), 10)
+            row["plain_ms"] = time_ms(torch, lambda: packed_attention_backward_reference(
+                qkv, dout, H, mask), 2)
+            q, k, v = (a.detach().requires_grad_() for a in split_heads(qkv, H))
+            g = dout.reshape(B, S, H, W // H).transpose(1, 2)
+            bias = torch.where(mask[:, None, None, :], -1e9, 0.0).to(dtype)
+            out = F.scaled_dot_product_attention(q, k, v, attn_mask=bias)
+            row["library_ms"] = time_ms(torch, lambda: torch.autograd.grad(
+                out, (q, k, v), g, retain_graph=True), 3)
+            del q, k, v, g, bias, out
+            with torch.no_grad():
+                row["packed_attention_ms"] = time_ms(
+                    torch, lambda: packed_attention(qkv, H, mask), 10)
+            row["bound_ms"], row["bound_by"] = backward_bound(B, S, W, name, qkv.element_size())
+            results.append(row)
+            log(f"{label} {name}: max_abs_err {err:.3e} (mean |plain| {mag:.3e}); by rows: "
+                + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+                + f"; tolerance {tol}; kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} "
+                f"ms, sdpa backward {row['library_ms']:.4f} ms, K1 forward "
+                f"{row['packed_attention_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+                f"({row['bound_by']})")
+            del qkv, dout, mask
+            torch.cuda.empty_cache()
+
+
+class GradCapture:
+    """An optimizer stand-in for one step: keeps the gradients."""
+
+    def __init__(self, module):
+        self.module, self.grads = module, None
+
+    def step(self):
+        self.grads = {k: p.grad.detach().clone() for k, p in self.module.named_parameters()
+                      if p.grad is not None}
+        self.module.zero_grad(set_to_none=True)
+
+
+def phase_train(torch, np, work):
+    """The training CLI (``ldm_main``) on edgez at production width in bf16:
+    K5 once per layer of every step, K1 twice (forward and the recompute of
+    remat) and once per layer of every validation call; the written pack
+    reloads strictly with the same forward; then one f32 step through the
+    kernels against the same step through plain attention."""
+    from brepgen_tpu_torch.cli import ldm_main
+    from brepgen_tpu_torch.cli.build import build_denoiser, seed_weights
+    from brepgen_tpu_torch.data.batch_assembly import assemble_edgez_batched
+    from brepgen_tpu_torch.data.synthetic import make_dataset
+    from brepgen_tpu_torch.diffusion.ddpm import make_ddpm_tables
+    from brepgen_tpu_torch.kernels import LAUNCH_COUNTS, reset_launch_counts
+    from brepgen_tpu_torch.train import ldm_train
+    from brepgen_tpu_torch.train.checkpoint import load_params
+    from brepgen_tpu_torch.train.common import TrainState
+    from brepgen_tpu_torch.train.vae_train import make_encoder_fn
+
+    e = str(TRAIN_EPOCHS)
+    argv = [*TRAIN_ARGS, "--surfvae", os.path.join(PACKS, "surf_vae.npz"),
+            "--edgevae", os.path.join(PACKS, "edge_vae.npz"), "--train_nepoch", e,
+            "--test_nepoch", e, "--save_nepoch", e, "--dir_name", work, "--env", "edgez"]
+    args = ldm_main.get_args(argv)
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    run = ldm_main.train(args)
+    torch.cuda.synchronize()
+    counts = dict(LAUNCH_COUNTS)
+    seconds = time.perf_counter() - t0
+    model, steps, val_calls = run.state.module, run.state.step, run.val_calls
+    layers = model.encoder.num_layers
+    want = dict(packed_attention_backward=layers * steps,
+                packed_attention=2 * layers * steps + layers * val_calls)
+    others = {k: v for k, v in counts.items() if k not in want and v}
+    if not model.encoder.remat or steps < 2 or val_calls < 1 or others or any(
+            counts[k] != v for k, v in want.items()):
+        raise AssertionError(f"train: {steps} steps, {val_calls} validation calls, remat "
+                             f"{model.encoder.remat}; launches {counts}, expected {want}")
+    with open(run.metrics_path) as f:
+        records = [json.loads(line) for line in f]
+    losses = [r["loss"] for r in records if "loss" in r]
+    vals = {k: v for r in records for k, v in r.items() if k.startswith("Val-")}
+    epochs = [r for r in records if "epoch_seconds" in r]
+    finite = all(torch.isfinite(p).all().item() for p in model.parameters())
+    if (not losses or not np.isfinite(losses + list(vals.values())).all() or len(vals) != 3
+            or not finite):
+        raise AssertionError(f"train: losses {losses}, validation {vals}, finite parameters "
+                             f"{finite}")
+    # the first epoch holds the warm-up (cuDNN, cuBLAS, the allocator)
+    steady = epochs[1:]
+    ms_per_step = 1e3 * sum(r["epoch_seconds"] for r in steady) / sum(
+        r["epoch_steps"] for r in steady)
+    log(f"train: ldm_main {' '.join(TRAIN_ARGS)}: {steps} steps of B=128 S=600 W=768 in "
+        f"{seconds:.2f} s (whole run, VAE packs and data included); epoch seconds "
+        + ", ".join(f"{r['epoch_seconds']:.3f}" for r in epochs)
+        + f"; {ms_per_step:.1f} ms per step after the first epoch; K5 launches "
+        f"{counts['packed_attention_backward']} = {layers} x {steps} steps, K1 launches "
+        f"{counts['packed_attention']} = 2 x {layers} x {steps} + {layers} x "
+        f"{val_calls} validation calls; losses " + ", ".join(f"{x:.4f}" for x in losses)
+        + f"; validation {vals}")
+
+    # the written pack, strictly reloaded, gives the trained module's forward
+    pack = os.path.join(args.save_dir, f"epoch_{TRAIN_EPOCHS}.npz")
+    fresh = load_params(pack, build_denoiser("edgez")).to("cuda").eval()
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    streams = [torch.randn((2, 600, d), generator=gen, device="cuda")
+               for d in model.stream_dims.values()]
+    mask = torch.zeros((2, 600), dtype=torch.bool, device="cuda")
+    mask[1, 300:] = True
+    t = torch.tensor([5, 600], device="cuda")
+    model.eval()
+    with torch.no_grad():
+        reload_diff = (fresh(streams, t, mask) - model(streams, t, mask)).abs().max().item()
+    if reload_diff != 0.0:
+        raise AssertionError(f"train: the reloaded pack's forward differs by {reload_diff:.3e}")
+    del fresh, run, model
+    torch.cuda.empty_cache()
+
+    # one f32 step through the kernels against the same step through plain
+    # attention: the same parameters, batch, draws and dropout seeds
+    ds = make_dataset(GRAD_BATCH, seed=5)
+    raw = assemble_edgez_batched(ds, list(range(GRAD_BATCH)), max_face=30, max_edge=20)
+    keys = ldm_main.BATCH_KEYS["edgez"]
+    batch = {k: torch.from_numpy(v).to("cuda") for k, v in zip(keys, raw)}
+    encode = {o: make_encoder_fn(ldm_main.load_vae(o, os.path.join(PACKS, f), "cuda"))
+              for o, f in (("surface", "surf_vae.npz"), ("edge", "edge_vae.npz"))}
+    tables = make_ddpm_tables()
+    grads = {}
+    for impl in ("kernel", "plain"):
+        net = build_denoiser("edgez", attn_impl=impl)
+        net = seed_weights(net, torch.Generator().manual_seed(2)).to("cuda")
+        step = ldm_train.make_edgez_step(net, tables, encode["surface"], encode["edge"])
+        capture = GradCapture(net)
+        reset_launch_counts()
+        metrics = step(TrainState(net, capture), batch, torch.Generator().manual_seed(3))
+        torch.cuda.synchronize()
+        grads[impl] = (capture.grads, float(metrics["loss"]), dict(LAUNCH_COUNTS))
+        del net, step, capture
+    (gk, loss_k, ck), (gp, loss_p, cp) = grads["kernel"], grads["plain"]
+    if set(gk) != set(gp):
+        raise AssertionError(f"train: gradients of {sorted(set(gk) ^ set(gp))} on one side only")
+    norm = lambda ts: torch.sqrt(sum((t.double() ** 2).sum() for t in ts)).item()  # noqa: E731
+    rel = norm(gk[n] - g for n, g in gp.items()) / norm(gp.values())
+    worst, worst_name = max((norm([gk[n] - g]) / max(norm([g]), 1e-30), n)
+                            for n, g in gp.items())
+    if (not rel <= GRAD_REL or ck["packed_attention_backward"] != 12
+            or cp["packed_attention_backward"] or abs(loss_k - loss_p) > 1e-4):
+        raise AssertionError(f"train: f32 kernel step against plain: global relative gradient "
+                             f"difference {rel:.3e} (bar {GRAD_REL:g}), worst tensor "
+                             f"{worst_name} {worst:.3e}, losses {loss_k} / {loss_p}, launches "
+                             f"{ck} / {cp}")
+    log(f"train: reloaded pack's forward equals the trained module's (max abs diff "
+        f"{reload_diff:g}); f32 step at B={GRAD_BATCH} S=600 through K1/K5 against plain "
+        f"attention: loss {loss_k:.6f} / {loss_p:.6f}, global relative gradient difference "
+        f"{rel:.3e} (bar {GRAD_REL:g}); largest relative difference of one tensor "
+        f"{worst:.3e} ({worst_name})")
+    return dict(path="train (ldm_main edgez, production width, bf16, B=128, S=600)",
+                launches=counts["packed_attention_backward"], k1_launches=counts["packed_attention"],
+                steps=steps, val_calls=val_calls, seconds=seconds, ms_per_step=ms_per_step, losses=losses, validation=vals,
+                reload_max_abs_diff=reload_diff, f32_grad_rel=rel, f32_grad_worst=worst)
 
 
 def chamfer_bound(S, R, P, n):
@@ -606,7 +838,7 @@ def main(argv=None) -> int:
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     t = time.perf_counter()
-    kernels = ("packed_attention", "set_attention", "chamfer")
+    kernels = ("packed_attention", "set_attention", "chamfer", "packed_attention_bwd")
     with ThreadPoolExecutor(len(kernels)) as pool:  # one nvcc per source, together
         list(pool.map(_build.load, kernels))
     build_s = time.perf_counter() - t
@@ -627,6 +859,11 @@ def main(argv=None) -> int:
         t = time.perf_counter()
         phase_attention(torch, kernel, kernel_shapes, shapes[kernel])
         log(f"phase kernel {kernel} done in {time.perf_counter() - t:.2f} s")
+
+    t = time.perf_counter()
+    backward_shapes = []
+    phase_backward(torch, backward_shapes)
+    log(f"phase kernel packed_attention_backward done in {time.perf_counter() - t:.2f} s")
 
     t = time.perf_counter()
     chamfer_shapes = phase_chamfer(torch, torch.Generator(device="cuda").manual_seed(args.seed))
@@ -705,6 +942,12 @@ def main(argv=None) -> int:
         t = time.perf_counter()
         evaluation = phase_eval(torch, np, os.path.join(work, "solids"), work, args.seed)
         log(f"phase eval done in {time.perf_counter() - t:.2f} s")
+        del cascade
+        torch.cuda.empty_cache()
+
+        t = time.perf_counter()
+        training = phase_train(torch, np, os.path.join(work, "train"))
+        log(f"phase train done in {time.perf_counter() - t:.2f} s")
 
     # the top-level numbers are those of the main shape (the first of each
     # kernel's shapes: production width in f32; chamfer: the n=256 eval
@@ -729,6 +972,10 @@ def main(argv=None) -> int:
                      [dict(path="eval (STL -> clouds -> JSD/MMD/COV)", **evaluation),
                       dict(path="solids (protocol batch 0, serial)", **solids)],
                      yardstick_ms=chamfer_shapes[0]["yardstick_ms"]),
+        kernel_entry("packed_attention_backward", csrc + "packed_attention_bwd.cu",
+                     "brepgen_tpu/kernels/attention.py:377", training["launches"],
+                     backward_shapes, [training],
+                     packed_attention_ms=backward_shapes[0]["packed_attention_ms"]),
     ]}), flush=True)
     log(f"all phases passed in {time.perf_counter() - T0:.2f} s")
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,6 @@
 """Port: the CUDA kernels (K1 packed attention, K2 its long-set entry, K3
-per-head set attention, K4 Chamfer matrix) against their plain versions, on
-the card.
+per-head set attention, K4 Chamfer matrix, K5 the packed attention's
+backward) against their plain versions, on the card.
 
 Marked ``cuda``: they skip without a card. This file imports no JAX, so it
 also runs on a machine without it (``--noconftest`` skips the JAX set-up of
@@ -16,6 +16,8 @@ import torch
 from brepgen_tpu_torch.kernels import LAUNCH_COUNTS
 from brepgen_tpu_torch.kernels.attention import (
     packed_attention,
+    packed_attention_backward,
+    packed_attention_backward_reference,
     packed_attention_reference,
     packed_flash_attention,
     packed_flash_attention_reference,
@@ -186,3 +188,94 @@ def test_chamfer_rejects_unsupported_input(cuda):
         chamfer_matrix(x.transpose(0, 1), x.transpose(0, 1))
     with pytest.raises(ValueError):
         chamfer_matrix(torch.zeros((1, 20000, 3), device=cuda), torch.zeros((1, 20000, 3), device=cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rel", [(torch.float32, 0.0), (torch.bfloat16, 2.0 ** -8)])
+@pytest.mark.parametrize("S,W,H", [(600, 768, 12), (601, 256, 8), (1500, 768, 12),
+                                   (601, 64, 2), (65, 64, 1)])
+def test_packed_backward_matches_plain_on_card(cuda, dtype, rel, S, W, H):
+    # K5 against its plain version in f32 on the same (bf16-valued) inputs:
+    # both sum in f32, the kernel rounds its output once to the input type.
+    # Sample 1 attends to one key, sample 2 to none (uniform P over S keys).
+    B = 4
+    qkv, mask = _inputs(B, S, W, seed=S + W)
+    dout = np.random.default_rng(S).normal(size=(B, S, W)).astype(np.float32)
+    qkv = torch.from_numpy(qkv).to(cuda, dtype)
+    dout = torch.from_numpy(dout).to(cuda, dtype)
+    mask = torch.from_numpy(mask).to(cuda)
+    before = dict(LAUNCH_COUNTS)
+    got = packed_attention_backward(qkv, dout, H, mask).float()
+    want = packed_attention_backward_reference(qkv.float(), dout.float(), H, mask)
+    assert LAUNCH_COUNTS["packed_attention_backward"] == before["packed_attention_backward"] + 1
+    assert LAUNCH_COUNTS["packed_attention"] == before["packed_attention"]
+    assert torch.isfinite(got).all()
+    assert ((got - want).abs() <= rel * want.abs() + 1e-4).all(), (got - want).abs().max()
+
+
+@pytest.mark.cuda
+def test_packed_attention_grad_runs_k1_then_k5_on_card(cuda):
+    # the entry's autograd path: forward K1, backward K5, one launch each
+    qkv, mask = _inputs(4, 300, 256, seed=7)
+    qkv = torch.from_numpy(qkv).to(cuda).requires_grad_()
+    mask = torch.from_numpy(mask).to(cuda)
+    dout = torch.randn((4, 300, 256), device=cuda)
+    before = dict(LAUNCH_COUNTS)
+    out = packed_attention(qkv, 8, mask)
+    (got,) = torch.autograd.grad(out, qkv, dout)
+    assert LAUNCH_COUNTS["packed_attention"] == before["packed_attention"] + 1
+    assert LAUNCH_COUNTS["packed_attention_backward"] == before["packed_attention_backward"] + 1
+    want = packed_attention_backward_reference(qkv.detach(), dout, 8, mask)
+    assert ((got - want).abs() <= 1e-4).all()
+
+
+@pytest.mark.cuda
+def test_set_attention_and_long_set_grads_on_card(cuda):
+    # K3 and K2 forward on the card, backward recomputed through the plain
+    # version: equal to autograd of the plain version
+    B, S, H, D = 4, 70, 2, 32
+    qkv, mask = _inputs(B, S, H * D, seed=11)
+    qkv = torch.from_numpy(qkv).to(cuda)
+    mask = torch.from_numpy(mask).to(cuda)
+    dout = torch.randn((B, S, H * D), device=cuda)
+    x = qkv.clone().requires_grad_()
+    (want,) = torch.autograd.grad(packed_attention_reference(x, H, mask), x, dout)
+    x = qkv.clone().requires_grad_()
+    (got,) = torch.autograd.grad(packed_flash_attention(x, H, mask), x, dout)
+    assert ((got - want).abs() <= 1e-4).all()
+    q, k, v = (a.reshape(B, S, H, D).transpose(1, 2).contiguous().requires_grad_()
+               for a in qkv.split(H * D, dim=-1))
+    g = dout.reshape(B, S, H, D).transpose(1, 2)
+    got = torch.autograd.grad(set_attention(q, k, v, mask), (q, k, v), g)
+    want = torch.autograd.grad(set_attention_reference(q, k, v, mask), (q, k, v), g)
+    for a, b in zip(got, want):
+        assert ((a - b).abs() <= 1e-4).all()
+
+
+@pytest.mark.cuda
+def test_packed_backward_rejects_unsupported_input(cuda):
+    qkv = torch.zeros((2, 8, 3 * 64), device=cuda)
+    dout = torch.zeros((2, 8, 64), device=cuda)
+    with pytest.raises(ValueError):
+        packed_attention_backward(torch.zeros((2, 8, 3 * 48), device=cuda),
+                                  torch.zeros((2, 8, 48), device=cuda), 1)  # D = 48
+    with pytest.raises(ValueError):
+        packed_attention_backward(qkv, dout[:, :7], 1)  # dout [B, S-1, W]
+    with pytest.raises(ValueError):
+        packed_attention_backward(qkv, dout.bfloat16(), 1)  # mixed types
+    with pytest.raises(ValueError):
+        packed_attention_backward(qkv, dout.cpu(), 1)  # dout on another device
+    with pytest.raises(ValueError):
+        packed_attention_backward(qkv, torch.zeros((2, 64, 8), device=cuda).transpose(1, 2), 1)
+    with pytest.raises(TypeError):
+        packed_attention_backward(qkv.half(), dout.half(), 1)
+    with pytest.raises(ValueError):
+        packed_attention_backward(qkv, dout, 1, torch.zeros((2, 7), dtype=torch.bool,
+                                                           device=cuda))
+
+
+@pytest.mark.cuda
+def test_chamfer_refuses_a_gradient(cuda):
+    x = torch.zeros((2, 8, 3), device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match="forward only"):
+        chamfer_matrix(x, x.detach())

@@ -25,7 +25,12 @@ def test_import_leaves_jax_out():
         "import sys, brepgen_tpu_torch, brepgen_tpu_torch.cli.sample_main, "
         "brepgen_tpu_torch.cli.eval_main, brepgen_tpu_torch.kernels.attention, "
         "brepgen_tpu_torch.kernels.chamfer, brepgen_tpu_torch.postprocess, "
-        "brepgen_tpu_torch.geometry, brepgen_tpu_torch.eval, brepgen_tpu_torch.data.augment\n"
+        "brepgen_tpu_torch.geometry, brepgen_tpu_torch.eval, brepgen_tpu_torch.data.augment, "
+        "brepgen_tpu_torch.cli.ldm_main, brepgen_tpu_torch.train.ldm_train, "
+        "brepgen_tpu_torch.train.vae_train, brepgen_tpu_torch.train.checkpoint, "
+        "brepgen_tpu_torch.train.loop, brepgen_tpu_torch.data.loader, "
+        "brepgen_tpu_torch.data.schema, brepgen_tpu_torch.data.synthetic, "
+        "brepgen_tpu_torch.kernels.set_attention\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "assert not bad, bad\n"
