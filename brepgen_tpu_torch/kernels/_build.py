@@ -4,8 +4,9 @@ Each source under ``csrc/`` exposes a plain ``extern "C"`` launcher, so it is
 compiled without PyTorch's headers (seconds, not minutes) and loaded with
 ``ctypes``. A library is built at first use into
 ``build/torch_kernels/<name>-<hash>/`` at the repository root (override with
-``BREPGEN_TORCH_BUILD_DIR``), keyed by a hash of the source and the flags, so
-an edited source is rebuilt and an unchanged one is reused.
+``BREPGEN_TORCH_BUILD_DIR``), keyed by a hash of the source, the shared
+headers (``csrc/*.cuh``) and the flags, so an edited source or header is
+rebuilt and an unchanged one is reused.
 """
 
 from __future__ import annotations
@@ -25,7 +26,8 @@ NVCC_FLAGS = (
     "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
-# name -> (seconds spent building in this process, nvcc's -Xptxas=-v report)
+# name -> (seconds spent building in this process, nvcc's -Xptxas=-v report,
+# kept beside the library as ptxas.txt for a library built earlier)
 BUILD_LOG: dict[str, tuple[float, str]] = {}
 _LOADED: dict[str, ctypes.CDLL] = {}
 
@@ -58,10 +60,14 @@ def find_nvcc() -> str:
 def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` into ``lib<name>.so`` unless already built."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    key = b"".join(p.read_bytes() for p in [src, *sorted(CSRC.glob("*.cuh"))])
+    digest = hashlib.sha256(key + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     out_dir = build_root() / f"{name}-{digest}"
     lib = out_dir / f"lib{name}.so"
+    report = out_dir / "ptxas.txt"
     if lib.is_file():
+        if name not in BUILD_LOG and report.is_file():
+            BUILD_LOG[name] = (0.0, report.read_text())
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = find_nvcc()
@@ -75,6 +81,7 @@ def build(name: str) -> Path:
         )
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed to build {src}:\n{proc.stdout}\n{proc.stderr}")
+        report.write_text(proc.stdout + proc.stderr)
         os.replace(tmp_path, lib)
     finally:
         if os.path.exists(tmp_path):
@@ -88,3 +95,23 @@ def load(name: str) -> ctypes.CDLL:
     if name not in _LOADED:
         _LOADED[name] = ctypes.CDLL(str(build(name)))
     return _LOADED[name]
+
+
+def mma_counts(name: str) -> dict[str, int] | None:
+    """Tensor-core instructions (``HMMA``/``HGMMA``) per kernel function in
+    the built ``lib<name>.so``, read with the toolkit's ``cuobjdump -sass``;
+    None where the toolkit has no ``cuobjdump``."""
+    tool = os.path.join(os.path.dirname(find_nvcc()), "cuobjdump")
+    if not os.access(tool, os.X_OK):
+        return None
+    sass = subprocess.run([tool, "-sass", str(build(name))], capture_output=True, text=True,
+                          check=True).stdout
+    counts: dict[str, int] = {}
+    func = None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            func = line.split("Function :", 1)[1].strip()
+            counts[func] = 0
+        elif func is not None and ("HMMA" in line or "HGMMA" in line):
+            counts[func] += 1
+    return counts

@@ -104,7 +104,7 @@ def packed_flash_attention_reference(
 
 def packed_attention_backward_reference(
     qkv: torch.Tensor, dout: torch.Tensor, num_heads: int,
-    key_padding_mask: Optional[torch.Tensor] = None,
+    key_padding_mask: Optional[torch.Tensor] = None, sums_in_f64: bool = False,
 ) -> torch.Tensor:
     """Plain PyTorch version of K5: the gradient of ``packed_attention``,
     [B, S, 3W] x dO [B, S, W] -> dqkv [B, S, 3W], step by step in f32 and
@@ -112,7 +112,11 @@ def packed_attention_backward_reference(
 
     With P = softmax(s QK^T + bias): dV = P^T dO, dP = dO V^T,
     dL = P o (dP - rowsum(dP o P)), dQ = s dL K, dK = s dL^T Q, as
-    ``_packed_bwd_kernel`` computes them.
+    ``_packed_bwd_kernel`` computes them. ``sums_in_f64`` keeps the logits
+    in f32 (scale, then the bias, so a fully masked row stays uniform) and
+    takes the softmax and every sum after them in f64, returned in f64: the
+    gradient with no rounding of its own over S rows, beside which the f32
+    version's drift is read.
     """
     B, S, W3 = qkv.shape
     W = W3 // 3
@@ -124,14 +128,18 @@ def packed_attention_backward_reference(
     logits = torch.einsum("bhqd,bhkd->bhqk", q, k) * scale
     if key_padding_mask is not None:
         logits = logits + torch.where(key_padding_mask[:, None, None, :], NEG_INF, 0.0)
+    if sums_in_f64:
+        logits, q, k, v, g = (a.double() for a in (logits, q, k, v, g))
     p = torch.softmax(logits, dim=-1)
+    del logits
     dv = torch.einsum("bhqk,bhqd->bhkd", p, g)
     dp = torch.einsum("bhqd,bhkd->bhqk", g, v)
     dl = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
     dq = torch.einsum("bhqk,bhkd->bhqd", dl, k) * scale
     dk = torch.einsum("bhqk,bhqd->bhkd", dl, q) * scale
     merge = lambda a: a.transpose(1, 2).reshape(B, S, W)  # noqa: E731
-    return torch.cat([merge(dq), merge(dk), merge(dv)], dim=-1).to(qkv.dtype)
+    dqkv = torch.cat([merge(dq), merge(dk), merge(dv)], dim=-1)
+    return dqkv if sums_in_f64 else dqkv.to(qkv.dtype)
 
 
 def _on_card(t: torch.Tensor) -> bool:
@@ -159,7 +167,7 @@ def _backward_library() -> ctypes.CDLL:
     fn = lib.packed_attention_backward
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_float, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
@@ -215,37 +223,43 @@ def _launch(name: str, qkv: torch.Tensor, num_heads: int,
 
 def packed_attention_backward(
     qkv: torch.Tensor, dout: torch.Tensor, num_heads: int,
-    key_padding_mask: Optional[torch.Tensor] = None,
+    key_padding_mask: Optional[torch.Tensor] = None, *, out: torch.Tensor,
 ) -> torch.Tensor:
     """K5: the gradient dqkv [B, S, 3W] of ``packed_attention`` at ``qkv``
     for the output gradient ``dout`` [B, S, W], through the CUDA kernel
-    (two launches, counted as one call).
+    (two launches, counted as one call). ``out`` is the forward's output
+    [B, S, W]: the f32 kernel takes rowsum(dP o P) as rowsum(dO o out), one
+    product fewer. The bf16 kernel and the plain version do not read it (a
+    bf16 ``out`` is too coarse for that sum).
 
     A tensor on the CPU takes the plain version; a CUDA tensor launches the
     kernel or raises.
     """
     if not _on_card(qkv):
         return packed_attention_backward_reference(qkv, dout, num_heads, key_padding_mask)
-    return _launch_backward(qkv, dout, num_heads, key_padding_mask)
+    return _launch_backward(qkv, dout, num_heads, key_padding_mask, out)
 
 
 def _launch_backward(qkv: torch.Tensor, dout: torch.Tensor, num_heads: int,
-                     key_padding_mask: Optional[torch.Tensor]) -> torch.Tensor:
+                     key_padding_mask: Optional[torch.Tensor],
+                     out: torch.Tensor) -> torch.Tensor:
     """Check the input, launch ``packed_attention_bwd.cu`` and count it."""
     name = "packed_attention_backward"
     mask = _check(name, qkv, num_heads, key_padding_mask)
     B, S, W3 = qkv.shape
     W = W3 // 3
-    if dout.shape != (B, S, W) or dout.dtype != qkv.dtype or dout.device != qkv.device:
-        raise ValueError(f"{name}: dout must be [B, S, W] = {(B, S, W)} of {qkv.dtype} on "
-                         f"{qkv.device}, got {tuple(dout.shape)} of {dout.dtype} on {dout.device}")
-    if not dout.is_contiguous() or dout.data_ptr() % 16:
-        raise ValueError(f"{name}: dout must be contiguous and 16-byte aligned")
+    for label, t in (("dout", dout), ("out", out)):
+        if t.shape != (B, S, W) or t.dtype != qkv.dtype or t.device != qkv.device:
+            raise ValueError(f"{name}: {label} must be [B, S, W] = {(B, S, W)} of {qkv.dtype} "
+                             f"on {qkv.device}, got {tuple(t.shape)} of {t.dtype} on {t.device}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name}: {label} must be contiguous and 16-byte aligned")
     stats = torch.empty((B, num_heads, S, 3), dtype=torch.float32, device=qkv.device)
     dqkv = torch.empty_like(qkv)
     with torch.cuda.device(qkv.device):
         rc = _backward_library().packed_attention_backward(
-            qkv.data_ptr(), dout.data_ptr(), mask.data_ptr(), stats.data_ptr(),
+            qkv.data_ptr(), dout.data_ptr(), out.data_ptr(),
+            mask.data_ptr(), stats.data_ptr(),
             dqkv.data_ptr(), B, S, W, num_heads, _DTYPES[qkv.dtype],
             1.0 / math.sqrt(W // num_heads), torch.cuda.current_stream().cuda_stream,
         )
@@ -276,18 +290,20 @@ def recompute_grads(fn, inputs, dout: torch.Tensor, *args):
 
 
 class PackedAttentionFn(torch.autograd.Function):
-    """K1 forward, K5 backward."""
+    """K1 forward, K5 backward (given the forward's output)."""
 
     @staticmethod
     def forward(ctx, qkv, num_heads, key_padding_mask):
         ctx.num_heads = num_heads
-        ctx.save_for_backward(qkv, key_padding_mask)
-        return _forward("packed_attention", qkv, num_heads, key_padding_mask)
+        out = _forward("packed_attention", qkv, num_heads, key_padding_mask)
+        ctx.save_for_backward(qkv, key_padding_mask, out)
+        return out
 
     @staticmethod
     def backward(ctx, dout):
-        qkv, mask = ctx.saved_tensors
-        return packed_attention_backward(qkv, dout.contiguous(), ctx.num_heads, mask), None, None
+        qkv, mask, out = ctx.saved_tensors
+        dqkv = packed_attention_backward(qkv, dout.contiguous(), ctx.num_heads, mask, out=out)
+        return dqkv, None, None
 
 
 class PackedFlashAttentionFn(torch.autograd.Function):

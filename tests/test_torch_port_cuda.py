@@ -38,6 +38,25 @@ def _inputs(B, S, W, seed):
     return qkv, mask
 
 
+def _hold_backward(got, qkv, dout, H, mask, rel):
+    """K5's dqkv per element, |err| <= rel * |want| + 1e-4, against the same
+    function with its sums in f64 and against its plain version in f32 on
+    the same (bf16-valued) inputs, unless that plain version itself lies
+    outside the bar of the f64 sums. Returns whether the plain version was
+    held to; the message gives both errors and the plain version's drift."""
+    got = got.double()
+    plain = packed_attention_backward_reference(qkv.float(), dout.float(), H, mask).double()
+    exact = packed_attention_backward_reference(qkv, dout, H, mask, sums_in_f64=True)
+    assert torch.isfinite(got).all()
+    text = (f"against plain {(got - plain).abs().max():.3e}, against f64 "
+            f"{(got - exact).abs().max():.3e}, plain against f64 "
+            f"{(plain - exact).abs().max():.3e}")
+    plain_ok = bool(((plain - exact).abs() <= rel * exact.abs() + 1e-4).all())
+    for want in (plain, exact) if plain_ok else (exact,):
+        assert ((got - want).abs() <= rel * want.abs() + 1e-4).all(), text
+    return plain_ok
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -195,22 +214,26 @@ def test_chamfer_rejects_unsupported_input(cuda):
 @pytest.mark.parametrize("S,W,H", [(600, 768, 12), (601, 256, 8), (1500, 768, 12),
                                    (601, 64, 2), (65, 64, 1)])
 def test_packed_backward_matches_plain_on_card(cuda, dtype, rel, S, W, H):
-    # K5 against its plain version in f32 on the same (bf16-valued) inputs:
-    # both sum in f32, the kernel rounds its output once to the input type.
-    # Sample 1 attends to one key, sample 2 to none (uniform P over S keys).
+    # K5 against its plain version in f32 on the same (bf16-valued) inputs,
+    # and against the same function with its sums in f64: the kernel sums in
+    # f32 on the tensor cores, in another order than the plain version, and
+    # rounds its output once to the input type. Sample 1 attends to one key,
+    # sample 2 to none (uniform P over S keys). At S = 1500 in f32 the plain
+    # version's own sums over 1500 rows leave the bar of the f64 sums (dV of
+    # the one-key sample is about 150), so K5 is held to the f64 sums there.
     B = 4
     qkv, mask = _inputs(B, S, W, seed=S + W)
     dout = np.random.default_rng(S).normal(size=(B, S, W)).astype(np.float32)
     qkv = torch.from_numpy(qkv).to(cuda, dtype)
     dout = torch.from_numpy(dout).to(cuda, dtype)
     mask = torch.from_numpy(mask).to(cuda)
+    with torch.no_grad():
+        out = packed_attention(qkv, H, mask)
     before = dict(LAUNCH_COUNTS)
-    got = packed_attention_backward(qkv, dout, H, mask).float()
-    want = packed_attention_backward_reference(qkv.float(), dout.float(), H, mask)
+    got = packed_attention_backward(qkv, dout, H, mask, out=out)
     assert LAUNCH_COUNTS["packed_attention_backward"] == before["packed_attention_backward"] + 1
     assert LAUNCH_COUNTS["packed_attention"] == before["packed_attention"]
-    assert torch.isfinite(got).all()
-    assert ((got - want).abs() <= rel * want.abs() + 1e-4).all(), (got - want).abs().max()
+    assert _hold_backward(got, qkv, dout, H, mask, rel) or S == 1500
 
 
 @pytest.mark.cuda
@@ -256,22 +279,28 @@ def test_set_attention_and_long_set_grads_on_card(cuda):
 def test_packed_backward_rejects_unsupported_input(cuda):
     qkv = torch.zeros((2, 8, 3 * 64), device=cuda)
     dout = torch.zeros((2, 8, 64), device=cuda)
+    d48 = torch.zeros((2, 8, 48), device=cuda)
     with pytest.raises(ValueError):
-        packed_attention_backward(torch.zeros((2, 8, 3 * 48), device=cuda),
-                                  torch.zeros((2, 8, 48), device=cuda), 1)  # D = 48
+        packed_attention_backward(torch.zeros((2, 8, 3 * 48), device=cuda), d48, 1,
+                                  out=d48)  # D = 48
     with pytest.raises(ValueError):
-        packed_attention_backward(qkv, dout[:, :7], 1)  # dout [B, S-1, W]
+        packed_attention_backward(qkv, dout[:, :7], 1, out=dout)  # dout [B, S-1, W]
     with pytest.raises(ValueError):
-        packed_attention_backward(qkv, dout.bfloat16(), 1)  # mixed types
+        packed_attention_backward(qkv, dout.bfloat16(), 1, out=dout)  # mixed types
     with pytest.raises(ValueError):
-        packed_attention_backward(qkv, dout.cpu(), 1)  # dout on another device
+        packed_attention_backward(qkv, dout.cpu(), 1, out=dout)  # dout on another device
     with pytest.raises(ValueError):
-        packed_attention_backward(qkv, torch.zeros((2, 64, 8), device=cuda).transpose(1, 2), 1)
+        packed_attention_backward(qkv, torch.zeros((2, 64, 8), device=cuda).transpose(1, 2), 1,
+                                  out=dout)
+    with pytest.raises(ValueError):
+        packed_attention_backward(qkv, dout, 1, out=dout[:, :7])  # out [B, S-1, W]
+    with pytest.raises(ValueError):
+        packed_attention_backward(qkv, dout, 1, out=dout.bfloat16())  # out of another type
     with pytest.raises(TypeError):
-        packed_attention_backward(qkv.half(), dout.half(), 1)
+        packed_attention_backward(qkv.half(), dout.half(), 1, out=dout.half())
     with pytest.raises(ValueError):
         packed_attention_backward(qkv, dout, 1, torch.zeros((2, 7), dtype=torch.bool,
-                                                           device=cuda))
+                                                           device=cuda), out=dout)
 
 
 @pytest.mark.cuda
@@ -279,3 +308,86 @@ def test_chamfer_refuses_a_gradient(cuda):
     x = torch.zeros((2, 8, 3), device=cuda, requires_grad=True)
     with pytest.raises(RuntimeError, match="forward only"):
         chamfer_matrix(x, x.detach())
+
+
+TILE_EDGES = (1, 15, 16, 17, 63, 64, 65, 127, 129, 601)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rel", [(torch.float32, 0.0), (torch.bfloat16, 2.0 ** -8)])
+@pytest.mark.parametrize("D", [32, 64])
+@pytest.mark.parametrize("S", TILE_EDGES)
+def test_set_attention_tile_edges_on_card(cuda, dtype, rel, D, S):
+    # K3's tensor-core tiles at ragged S: 16-row warp tiles, 64-key tiles
+    B, H = 4, 2
+    qkv, mask = _inputs(B, S, H * D, seed=3 * S + D)
+    q, k, v = (torch.from_numpy(a).to(cuda, dtype).reshape(B, S, H, D).transpose(1, 2)
+               .contiguous() for a in np.split(qkv, 3, axis=-1))
+    mask = torch.from_numpy(mask).to(cuda)
+    got = set_attention(q, k, v, mask).float()
+    want = set_attention_reference(q.float(), k.float(), v.float(), mask)
+    assert ((got - want).abs() <= rel * want.abs() + 1e-4).all()
+    uniform = v[2].float().mean(1, keepdim=True).expand(H, S, D)
+    assert ((got[2] - uniform).abs() <= rel * uniform.abs() + 1e-4).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rel", [(torch.float32, 0.0), (torch.bfloat16, 2.0 ** -8)])
+@pytest.mark.parametrize("D", [32, 64])
+@pytest.mark.parametrize("S", TILE_EDGES)
+def test_packed_backward_tile_edges_on_card(cuda, dtype, rel, D, S):
+    # K5 at ragged S, given the forward's output as training gives it; sample
+    # 1 attends to one key, sample 2 to none
+    B, H = 4, 2
+    qkv, mask = _inputs(B, S, H * D, seed=5 * S + D)
+    dout = np.random.default_rng(S + D).normal(size=(B, S, H * D)).astype(np.float32)
+    qkv = torch.from_numpy(qkv).to(cuda, dtype)
+    dout = torch.from_numpy(dout).to(cuda, dtype)
+    mask = torch.from_numpy(mask).to(cuda)
+    with torch.no_grad():
+        out = packed_attention(qkv, H, mask)
+    got = packed_attention_backward(qkv, dout, H, mask, out=out)
+    assert _hold_backward(got, qkv, dout, H, mask, rel)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_packed_backward_is_deterministic_on_card(cuda, dtype):
+    # two launches, no atomics: the same dqkv to the bit
+    qkv, mask = _inputs(8, 600, 768, seed=21)
+    qkv = torch.from_numpy(qkv).to(cuda, dtype)
+    mask = torch.from_numpy(mask).to(cuda)
+    dout = torch.randn((8, 600, 768), device=cuda).to(dtype)
+    with torch.no_grad():
+        out = packed_attention(qkv, 12, mask)
+    first = packed_attention_backward(qkv, dout, 12, mask, out=out)
+    assert torch.equal(first, packed_attention_backward(qkv, dout, 12, mask, out=out))
+
+
+def _large_logits(cuda, B, S, H, D, seed):
+    # q, k rows of norm sqrt(30 sqrt(D)), k a small step from q: the diagonal
+    # logits reach about 30, where one TF32 rounding of q or k moves a logit
+    # by about 30 * 2^-11 and the softmax by 1.5% (tests/test_torch_port_tc_numerics.py)
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    q = torch.randn((B, H, S, D), generator=gen, device=cuda)
+    q = q / q.norm(dim=-1, keepdim=True) * (30 * D ** 0.5) ** 0.5
+    k = q + 0.1 * torch.randn((B, H, S, D), generator=gen, device=cuda)
+    v = torch.randn((B, H, S, D), generator=gen, device=cuda)
+    assert (torch.einsum("bhqd,bhkd->bhqk", q, k) / D ** 0.5).max() > 28
+    return q, k, v
+
+
+@pytest.mark.cuda
+def test_f32_logits_near_30_take_the_3xtf32_split_on_card(cuda):
+    B, S, H, D = 2, 129, 2, 64
+    q, k, v = _large_logits(cuda, B, S, H, D, seed=4)
+    mask = torch.zeros((B, S), dtype=torch.bool, device=cuda)
+    got = set_attention(q, k, v, mask)
+    assert ((got - set_attention_reference(q, k, v, mask)).abs() <= 1e-4).all()
+    qkv = torch.cat([a.transpose(1, 2).reshape(B, S, H * D) for a in (q, k, v)], -1)
+    qkv = qkv.contiguous()
+    dout = torch.randn((B, S, H * D), device=cuda)
+    with torch.no_grad():
+        out = packed_attention(qkv, H, mask)
+    got = packed_attention_backward(qkv, dout, H, mask, out=out)
+    assert _hold_backward(got, qkv, dout, H, mask, 0.0)

@@ -59,6 +59,21 @@ def test_backward_plain_matches_jax_vjp(S, W, H):
     assert _max_diff(got, want) <= TOL
 
 
+@pytest.mark.parametrize("S,W,H", [(37, 64, 2), (129, 128, 2)])
+def test_backward_sums_in_f64_match_jax_vjp(S, W, H):
+    # the card tests' second yardstick for K5: the same gradient with every
+    # sum after the f32 logits in f64
+    qkv, dout, mask = _inputs(4, S, W, seed=S + 2 * W, all_masked=True)
+    _, vjp = jax.vjp(lambda x: jattn._packed_reference(x, H, jnp.asarray(mask)),
+                     jnp.asarray(qkv))
+    (want,) = vjp(jnp.asarray(dout))
+    got = kattn.packed_attention_backward_reference(
+        torch.from_numpy(qkv), torch.from_numpy(dout), H, torch.from_numpy(mask),
+        sums_in_f64=True)
+    assert got.dtype == torch.float64 and got.shape == qkv.shape
+    assert _max_diff(got, want) <= TOL
+
+
 @pytest.mark.parametrize("S,W,H,block_q", [(37, 64, 2, 16), (70, 256, 8, 32), (20, 128, 2, 8)])
 def test_backward_plain_matches_pallas_interpret(S, W, H, block_q):
     qkv, dout, mask = _inputs(3, S, W, seed=S * 3 + W)
@@ -105,7 +120,7 @@ def _stand_in_launchers(monkeypatch):
                  else kattn.packed_flash_attention_reference)
         return plain(qkv, H, mask).detach()
 
-    def launch_backward(qkv, dout, H, mask):
+    def launch_backward(qkv, dout, H, mask, out):
         calls["backward"] += 1
         return kattn.packed_attention_backward_reference(qkv, dout, H, mask).detach()
 
