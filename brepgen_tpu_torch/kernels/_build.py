@@ -97,21 +97,29 @@ def load(name: str) -> ctypes.CDLL:
     return _LOADED[name]
 
 
-def mma_counts(name: str) -> dict[str, int] | None:
-    """Tensor-core instructions (``HMMA``/``HGMMA``) per kernel function in
-    the built ``lib<name>.so``, read with the toolkit's ``cuobjdump -sass``;
-    None where the toolkit has no ``cuobjdump``."""
+# SASS opcodes counted per kernel function: tensor-core products of mma.sync
+# (HMMA) and of wgmma (HGMMA), and TMA tile loads (UTMALDG)
+SASS_OPCODES = ("HMMA", "HGMMA", "UTMALDG")
+
+
+def sass_counts(name: str) -> dict[str, dict[str, int]] | None:
+    """{kernel function: {opcode: count}} of ``SASS_OPCODES`` in the built
+    library, read with the toolkit's ``cuobjdump -sass``; None where the
+    toolkit has no ``cuobjdump``."""
     tool = os.path.join(os.path.dirname(find_nvcc()), "cuobjdump")
     if not os.access(tool, os.X_OK):
         return None
     sass = subprocess.run([tool, "-sass", str(build(name))], capture_output=True, text=True,
                           check=True).stdout
-    counts: dict[str, int] = {}
+    counts: dict[str, dict[str, int]] = {}
     func = None
     for line in sass.splitlines():
         if "Function :" in line:
             func = line.split("Function :", 1)[1].strip()
-            counts[func] = 0
-        elif func is not None and ("HMMA" in line or "HGMMA" in line):
-            counts[func] += 1
+            counts[func] = dict.fromkeys(SASS_OPCODES, 0)
+        elif func is not None:
+            words = line.replace(";", " ").split()
+            for op in SASS_OPCODES:
+                if any(w.split(".")[0] == op for w in words):
+                    counts[func][op] += 1
     return counts

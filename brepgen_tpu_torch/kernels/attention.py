@@ -6,10 +6,11 @@ straight from the fused QKV projection [B, S, 3W] -> [B, S, W]; scale
 1/sqrt(W/H); a key-padding bias of -1e9; f32 logits and softmax. K2 is K1's
 function with K/V streamed in chunks under an online softmax; the TPU needed
 it only because full-S K/V did not fit VMEM. ``csrc/packed_attention.cu``
-already streams K/V in 64-key shared-memory tiles with a running max and
-normaliser, at any S, so both entries launch that one kernel, each with its
-own launch count. The transformer picks the entry by length
-(``nn/transformer.py:attention_route``).
+streams K/V in 64-key shared-memory tiles with a running max and normaliser,
+at any S, on the tensor cores (f32: ``mma.sync`` through 3xTF32, K3's
+forward on the packed layout; bf16: ``wgmma`` with TMA), so both entries
+launch that one kernel, each with its own launch count. The transformer
+picks the entry by length (``nn/transformer.py:attention_route``).
 
 Kernel K5, ``_packed_bwd_kernel``, is the backward of K1:
 ``csrc/packed_attention_bwd.cu``, launched by ``packed_attention_backward``.

@@ -1,7 +1,9 @@
-// Warp-level tensor-core tiles shared by set_attention.cu (K3) and
-// packed_attention_bwd.cu (K5): 16-byte cp.async copies into padded shared
-// tiles, mma.sync fragment loads, and one product interface for both input
-// types.
+// Warp-level tensor-core tiles shared by set_attention.cu (K3),
+// packed_attention.cu (K1, K2) and packed_attention_bwd.cu (K5): 16-byte
+// cp.async copies into padded shared tiles, mma.sync fragment loads, one
+// product interface for both input types, the online softmax of a warp's
+// logit tile, and the whole forward of one 64-row query tile (K3, and K1/K2
+// in f32).
 //
 // Tiles are [64 rows][D] of the input type in shared memory with a row stride
 // of D + 16 bytes, so that every fragment load below is free of bank
@@ -28,6 +30,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace tc {
@@ -298,10 +301,190 @@ __device__ __forceinline__ float quad_sum(float x) {
 // logits of a fully masked row, -inf for keys past S.
 __device__ __forceinline__ float exp_(float x) { return exp2f(x * 1.4426950408889634f); }
 
+// The same through the bare ex2.approx.ftz instruction (2^-22 relative, exact
+// 1 at 0, results below 2^-126 flushed to 0), one instruction where exp2f
+// spends four on its range fix-up: for bf16, whose bar is 2^-8 relative
+__device__ __forceinline__ float exp_fast(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x * 1.4426950408889634f));
+  return y;
+}
+
 // scale, then bias, rounded apart as the plain versions round them: a fused
 // multiply-add would move fully masked logits by an ulp of 1e9
 __device__ __forceinline__ float logit(float dot, float scale, float bias) {
   return __fadd_rn(__fmul_rn(dot, scale), bias);
+}
+
+// ---- the forward of one query tile ------------------------------------------
+//
+// softmax_tile, store_rows and attention_forward are the forward of K3 and,
+// on the packed layout, of K1/K2 in f32; K1/K2's bf16 kernel shares
+// softmax_tile and store_rows (its products run on wgmma instead).
+
+constexpr int NT = TILE / 8;  // n8 tiles of logits per 64-key tile
+constexpr float MASK_BIAS = -1e9f;
+
+// The online softmax of a warp's 16 x 64 logit tile s (m16n8 accumulators:
+// rows g and g + 8, columns j * 8 + 2t + (e & 1)), in place: s becomes
+// p = exp(l - m_new) with l = logit(s, scale, bias[j][e & 1]); m and l (this
+// lane's part of the row sums) are updated and corr = exp(m_old - m_new)
+// is returned per row for the output accumulators. FAST takes exp_fast.
+template <bool FAST = false>
+__device__ __forceinline__ void softmax_tile(float (&s)[NT][4], const float (&bias)[NT][2],
+                                             float scale, float (&m)[2], float (&l)[2],
+                                             float (&corr)[2]) {
+  const auto ex = [](float x) { return FAST ? exp_fast(x) : exp_(x); };
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[j][e] = logit(s[j][e], scale, bias[j][e & 1]);
+      mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float m_new = fmaxf(m[r], quad_max(mx[r]));
+    corr[r] = ex(m[r] - m_new);
+    l[r] *= corr[r];
+    m[r] = m_new;
+  }
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[j][e] = ex(s[j][e] - m[e >> 1]);
+      l[e >> 1] += s[j][e];
+    }
+  }
+}
+
+// o / sum(l) of a warp's 16 rows, row0 the first, into out (rows out_stride
+// elements apart); rows at or past S are not stored.
+template <typename T, int D>
+__device__ __forceinline__ void store_rows(const float (&o)[D / 8][4], const float (&l)[2],
+                                           T* out, long long out_stride, int row0, int S) {
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + g + 8 * r;
+    const float inv = 1.f / quad_sum(l[r]);
+    if (row < S) {
+      T* op = out + (long long)row * out_stride + 2 * t;
+#pragma unroll
+      for (int d = 0; d < D / 8; ++d) store2(op + d * 8, o[d][2 * r] * inv, o[d][2 * r + 1] * inv);
+    }
+  }
+}
+
+// Dynamic shared memory of attention_forward: Q, and K, V twice, as padded
+// tiles, and two tiles of key biases.
+template <typename T, int D>
+__host__ __device__ constexpr size_t forward_smem_bytes() {
+  return 5 * (size_t)TILE * ld<T, D>() * sizeof(T) + 2 * TILE * sizeof(float);
+}
+
+// Query rows [q0, q0 + TILE) of one (batch, head) by one block of THREADS
+// threads: q, k, v point at key row 0 of the head's [S, D] column blocks,
+// rows `stride` elements apart (D for split heads, 3W for a packed qkv);
+// out at row 0 of its [S, D] block, rows `out_stride` apart; mrow at the
+// batch's key-padding mask. 64-key tiles of K and V are double-buffered by
+// cp.async (the next tile's copy overlaps this tile's products). Per key
+// tile a warp forms its 16 x 64 logits with mma.sync, runs softmax_tile,
+// and takes P from the accumulators as the A operand of P V. The tile's
+// P V goes into fresh accumulators and then o = o * corr + P V with one
+// rounding to nearest: the tensor cores truncate as they accumulate, which
+// over thousands of keys would drift past the f32 bar. Keys past S get a
+// bias of -inf (excluded, not masked); query rows past S are computed on
+// zero-filled rows and not stored.
+template <typename T, int D>
+__device__ __forceinline__ void attention_forward(void* smem, const T* q, const T* k,
+                                                  const T* v, long long stride,
+                                                  const uint8_t* mrow, T* out,
+                                                  long long out_stride, int S, int q0,
+                                                  float scale) {
+  using O = Op<T>;
+  constexpr int L = ld<T, D>();
+  constexpr int KS = O::KS;
+  T* Qs = reinterpret_cast<T*>(smem);  // [TILE][L]
+  T* Ks = Qs + TILE * L;               // [2][TILE][L]
+  T* Vs = Ks + 2 * TILE * L;           // [2][TILE][L]
+  float* bias = reinterpret_cast<float*>(Vs + 2 * TILE * L);  // [2][TILE]
+
+  const int warp = threadIdx.x >> 5;
+  const int t = threadIdx.x & 3;
+
+  auto load_kv = [&](int k0, int buf) {
+    load_tile<T, D>(Ks + buf * TILE * L, k + (long long)k0 * stride, stride, S - k0);
+    load_tile<T, D>(Vs + buf * TILE * L, v + (long long)k0 * stride, stride, S - k0);
+    if (threadIdx.x < TILE) {
+      const int key = k0 + threadIdx.x;
+      bias[buf * TILE + threadIdx.x] = key < S ? (mrow[key] ? MASK_BIAS : 0.f) : -INFINITY;
+    }
+  };
+  load_tile<T, D>(Qs, q + (long long)q0 * stride, stride, S - q0);
+  load_kv(0, 0);
+  cp_commit();
+
+  float o[D / 8][4];
+#pragma unroll
+  for (int d = 0; d < D / 8; ++d) o[d][0] = o[d][1] = o[d][2] = o[d][3] = 0.f;
+  float m[2] = {-1e30f, -1e30f};  // running max of rows g and g + 8
+  float l[2] = {0.f, 0.f};        // this lane's part of their running sums
+
+  const int tiles = (S + TILE - 1) / TILE;
+  for (int it = 0; it < tiles; ++it) {
+    const int buf = it & 1;
+    if (it + 1 < tiles) {
+      load_kv((it + 1) * TILE, buf ^ 1);
+      cp_commit();
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    __syncthreads();
+    const T* Kt = Ks + buf * TILE * L;
+    const T* Vt = Vs + buf * TILE * L;
+    const float* bt = bias + buf * TILE;
+
+    float s[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+    for (int k0 = 0; k0 < D; k0 += KS) {
+      const typename O::A a = O::template load_a<L>(Qs, warp * 16, k0);
+#pragma unroll
+      for (int j = 0; j < NT; ++j) O::mma(s[j], a, O::template load_b_nk<L>(Kt, j * 8, k0));
+    }
+    float bj[NT][2];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      bj[j][0] = bt[j * 8 + 2 * t];
+      bj[j][1] = bt[j * 8 + 2 * t + 1];
+    }
+    float corr[2];
+    softmax_tile(s, bj, scale, m, l, corr);
+
+    float pv[D / 8][4];
+#pragma unroll
+    for (int d = 0; d < D / 8; ++d) pv[d][0] = pv[d][1] = pv[d][2] = pv[d][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < TILE / KS; ++kk) {
+      const typename O::AP p = O::a_from_c(s, kk);
+#pragma unroll
+      for (int d = 0; d < D / 8; ++d)
+        O::mma(pv[d], p, O::template load_b_kn<L>(Vt, kk * KS, d * 8));
+    }
+#pragma unroll
+    for (int d = 0; d < D / 8; ++d) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[d][e] = fmaf(o[d][e], corr[e >> 1], pv[d][e]);
+    }
+    __syncthreads();  // this buffer is refilled two tiles on
+  }
+  store_rows<T, D>(o, l, out, out_stride, q0 + warp * 16, S);
 }
 
 }  // namespace tc

@@ -53,8 +53,9 @@ PEAK_BYTES = 3.35e12
 # K4 stays at the f32 rate.
 PEAK_FLOPS_ATTENTION = {"float32": 495e12 / 3, "bfloat16": 989e12}
 # Sources whose kernels run on the tensor cores: each kernel function in
-# their cubins must hold HMMA or HGMMA instructions
-TENSOR_CORE_SOURCES = ("set_attention", "packed_attention_bwd")
+# their cubins must hold HMMA or HGMMA instructions; the bf16 functions of
+# packed_attention.cu HGMMA (wgmma) and UTMALDG (TMA) ones
+TENSOR_CORE_SOURCES = ("set_attention", "packed_attention_bwd", "packed_attention")
 # |kernel - plain| <= REL * |plain| + ABS per element, the plain version run in
 # f32 on the same (for bf16: bf16-valued) inputs. A bf16 output is one
 # rounding (relative 2^-9) from the f32 result. MAX_ABS bounds the max
@@ -88,7 +89,9 @@ CHAMFER_REL, CHAMFER_ABS = 1e-5, 1e-7
 # exceeds 2e-2. K5_LONG is the card test's longest set: dV of its one-key
 # sample sums 1500 rows, where the plain version's own f32 sums leave the bar
 # of the f64 sums (1.6e-4 on an H100); where they do, the drift is logged and
-# K5 is held to the f64 sums alone, with the same bar.
+# K5 is held to the f64 sums alone, with the same bar. K1's output at these
+# shapes, K5's input, is held to K1's plain version with all the forward's
+# bars (MAX_ABS included): the first is the training step's K1.
 K5_LONG = (4, 1500, 768, 12)
 K5_SHAPES = ((128, 600, 768, 12), (64, 160, 256, 8), K5_LONG)
 # Phase train: the CLI trains edgez at production width in bf16 on synthetic
@@ -281,7 +284,9 @@ def backward_bound(B, S, W, dtype_name, itemsize):
 
 def phase_backward(torch, results):
     """K5 at ``K5_SHAPES`` in f32 and bf16, given the forward's output (K1's,
-    made outside the timed region, as training hands it over): held per
+    made outside the timed region, as training hands it over, and itself
+    held to K1's plain version with K1's bars, the training step's K1 at
+    the first shape): held per
     element to its plain version in f32 and to the same function with its
     sums in f64, the plain version's own drift from that logged beside (at
     ``K5_LONG``, where that drift leaves the bar, to the f64 sums alone);
@@ -295,6 +300,7 @@ def phase_backward(torch, results):
         packed_attention,
         packed_attention_backward,
         packed_attention_backward_reference,
+        packed_attention_reference,
     )
 
     gen = torch.Generator(device="cuda").manual_seed(5)
@@ -307,6 +313,10 @@ def phase_backward(torch, results):
             label = f"kernel packed_attention_backward B={B} S={S} W={W} H={H}"
             with torch.no_grad():
                 fwd = packed_attention(qkv, H, mask)
+            fwd_err, _, fwd_text = hold_to_plain(
+                torch, label.replace("_backward", "") + " (K5's input)", fwd.float(),
+                packed_attention_reference(qkv.float(), H, mask), qkv, mask, W, name)
+            torch.cuda.empty_cache()
             got = packed_attention_backward(qkv, dout, H, mask, out=fwd).double()
             if not torch.isfinite(got).all():
                 raise AssertionError(f"{label} {name}: non-finite gradient")
@@ -343,7 +353,8 @@ def phase_backward(torch, results):
             torch.cuda.empty_cache()
             row = dict(B=B, S=S, W=W, H=H, dtype=name, max_abs_err=err["plain"],
                        row_max_abs_err=errs["plain"], max_abs_err_f64=err["f64"],
-                       plain_drift_f64=drift, held_to=list(held))
+                       plain_drift_f64=drift, held_to=list(held),
+                       packed_attention_max_abs_err=fwd_err)
             row["ms"] = time_ms(
                 torch, lambda: packed_attention_backward(qkv, dout, H, mask, out=fwd), 10)
             row["plain_ms"] = time_ms(torch, lambda: packed_attention_backward_reference(
@@ -368,8 +379,8 @@ def phase_backward(torch, results):
                 + ("" if "plain" in held else " (past the bar: held to the f64 sums alone)")
                 + f"; tolerance {tol}; "
                 f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, sdpa backward "
-                f"{row['library_ms']:.4f} ms, K1 forward {row['packed_attention_ms']:.4f} ms, "
-                f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}){simt_text(row)}")
+                f"{row['library_ms']:.4f} ms, K1 forward {row['packed_attention_ms']:.4f} ms "
+                f"({fwd_text}), bound {row['bound_ms']:.4f} ms ({row['bound_by']}){simt_text(row)}")
             del qkv, dout, mask
             torch.cuda.empty_cache()
 
@@ -863,8 +874,8 @@ def phase_long_set(torch, np, work):
     return path
 
 
-KERNEL_NAMES = ("set_attention_kernel", "packed_attention_kernel", "dkv_kernel", "dq_kernel",
-                "chamfer_kernel")
+KERNEL_NAMES = ("set_attention_kernel", "packed_attention_kernel",
+                "packed_attention_wgmma_kernel", "dkv_kernel", "dq_kernel", "chamfer_kernel")
 
 
 def kernel_label(mangled):
@@ -895,29 +906,33 @@ def ptxas_table(report):
 
 
 def dynamic_smem(name, lib, label):
-    """Bytes of dynamic shared memory per block of the K3 and K5 kernels,
-    from their launchers' own sizes."""
+    """Bytes of dynamic shared memory per block of the K1/K2, K3 and K5
+    kernels, from their launchers' own sizes."""
     m = re.search(r"<(\w+), D=(\d+)>", label)
     if not m:
         return None
     D, dtype = int(m.group(2)), int(m.group(1) == "bf16")
     if name == "set_attention":
         return lib.set_attention_smem_bytes(D, dtype)
+    if name == "packed_attention":
+        return lib.packed_attention_smem_bytes(D, dtype)
     if name == "packed_attention_bwd":
         return lib.packed_attention_backward_smem_bytes(D, dtype, int(label.startswith("dkv")))
     return None
 
 
 def build_report(_build, kernels):
-    """One line per kernel function: registers, spills, shared memory and
-    tensor-core instructions (HMMA/HGMMA in its cubin, from cuobjdump). A
-    function of a tensor-core source with none raises. Returns the counts
-    of the tensor-core sources by function label."""
+    """One line per kernel function of each source: registers, spills,
+    shared memory and its HMMA, HGMMA and UTMALDG instructions (from
+    cuobjdump). A function of a tensor-core source with no HMMA or HGMMA
+    raises, and so does a bf16 function of packed_attention.cu without
+    HGMMA and UTMALDG. Returns {source: {function label: counts}} of the
+    tensor-core sources."""
     counts = {}
     for name in kernels:
         secs, report = _build.BUILD_LOG.get(name, (0.0, ""))
-        mma = _build.mma_counts(name)
-        if mma is None:
+        sass = _build.sass_counts(name)
+        if sass is None:
             log(f"  nvcc {name}: {secs:.2f} s; cuobjdump not in the toolkit: tensor-core "
                 f"instructions not counted")
         else:
@@ -926,16 +941,21 @@ def build_report(_build, kernels):
         for func, (regs, st, ld) in ptxas_table(report).items():
             label = kernel_label(func)
             smem = dynamic_smem(name, lib, label)
-            n = None if mma is None else mma.get(func, 0)
+            n = None if sass is None else sass.get(func, dict.fromkeys(_build.SASS_OPCODES, 0))
             log(f"  {label} ({name}.cu): {regs} registers, spills {st} B stored / {ld} B "
                 f"loaded, " + (f"{smem} B dynamic shared memory" if smem is not None
                                else "shared memory as in its source")
-                + ("" if n is None else f", {n} HMMA/HGMMA instructions"))
-        if name in TENSOR_CORE_SOURCES and mma is not None:
-            if not mma or not all(mma.values()):
+                + ("" if n is None else ", " + ", ".join(f"{v} {k}" for k, v in n.items())))
+        if name in TENSOR_CORE_SOURCES and sass is not None:
+            labels = {kernel_label(func): n for func, n in sass.items()}
+            if not labels or not all(n["HMMA"] + n["HGMMA"] for n in labels.values()):
                 raise AssertionError(f"{name}.cu: a kernel runs no tensor-core instruction "
-                                     f"({mma})")
-            counts.update((kernel_label(func), n) for func, n in mma.items())
+                                     f"({labels})")
+            if name == "packed_attention" and not all(
+                    n["HGMMA"] and n["UTMALDG"] for k, n in labels.items() if "bf16" in k):
+                raise AssertionError(f"{name}.cu: a bf16 kernel runs no wgmma or no TMA "
+                                     f"({labels})")
+            counts[name] = labels
     return counts
 
 
@@ -1091,16 +1111,18 @@ def main(argv=None) -> int:
         kernel_entry("packed_attention", csrc + "packed_attention.cu",
                      "brepgen_tpu/kernels/attention.py:150",
                      paths["packed_attention"][0]["launches"], shapes["packed_attention"],
-                     paths["packed_attention"]),
+                     paths["packed_attention"],
+                     tensor_core_instructions=tensor_cores.get("packed_attention")),
         kernel_entry("packed_flash_attention", csrc + "packed_attention.cu",
                      "brepgen_tpu/kernels/attention.py:261",
                      paths["packed_flash_attention"][0]["launches"],
-                     shapes["packed_flash_attention"], paths["packed_flash_attention"]),
+                     shapes["packed_flash_attention"], paths["packed_flash_attention"],
+                     tensor_core_instructions=tensor_cores.get("packed_attention")),
         kernel_entry("set_attention", csrc + "set_attention.cu",
                      "brepgen_tpu/kernels/attention.py:47",
                      paths["set_attention"][0]["launches"], shapes["set_attention"],
-                     paths["set_attention"], tensor_core_instructions={
-                         k: v for k, v in tensor_cores.items() if "set_attention" in k}),
+                     paths["set_attention"],
+                     tensor_core_instructions=tensor_cores.get("set_attention")),
         kernel_entry("chamfer", csrc + "chamfer.cu", "brepgen_tpu/kernels/chamfer.py:47",
                      evaluation["launches"], chamfer_shapes,
                      [dict(path="eval (STL -> clouds -> JSD/MMD/COV)", **evaluation),
@@ -1110,8 +1132,7 @@ def main(argv=None) -> int:
                      "brepgen_tpu/kernels/attention.py:377", training["launches"],
                      backward_shapes, [training],
                      packed_attention_ms=backward_shapes[0]["packed_attention_ms"],
-                     tensor_core_instructions={
-                         k: v for k, v in tensor_cores.items() if "set_attention" not in k}),
+                     tensor_core_instructions=tensor_cores.get("packed_attention_bwd")),
     ]}), flush=True)
     log(f"all phases passed in {time.perf_counter() - T0:.2f} s")
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,9 @@
 """Port: the CUDA kernels (K1 packed attention, K2 its long-set entry, K3
 per-head set attention, K4 Chamfer matrix, K5 the packed attention's
-backward) against their plain versions, on the card.
+backward) against their plain versions, on the card. The tile-edge cases
+(``TILE_EDGES``) run every tensor-core kernel at ragged S for both head
+widths and input types: K1/K2 in bf16 on wgmma with TMA, with a swizzle of
+its own per head width.
 
 Marked ``cuda``: they skip without a card. This file imports no JAX, so it
 also runs on a machine without it (``--noconftest`` skips the JAX set-up of
@@ -351,6 +354,53 @@ def test_packed_backward_tile_edges_on_card(cuda, dtype, rel, D, S):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rel", [(torch.float32, 0.0), (torch.bfloat16, 2.0 ** -8)])
+@pytest.mark.parametrize("D", [32, 64])
+@pytest.mark.parametrize("S", TILE_EDGES)
+@pytest.mark.parametrize("entry", ["packed_attention", "packed_flash_attention"])
+def test_packed_attention_tile_edges_on_card(cuda, entry, dtype, rel, D, S):
+    # K1 and K2 (the same kernel through its long-set entry) at ragged S: f32
+    # on 16-row warp tiles, bf16 on 64-row wgmma tiles, 64-key tiles in both,
+    # TMA's zero fill past S (bf16) against the plain version in f32 on the
+    # same (bf16-valued) inputs; sample 1 attends to one key, sample 2 to
+    # none (the uniform mean of V)
+    B, H = 4, 2
+    fn, plain = {"packed_attention": (packed_attention, packed_attention_reference),
+                 "packed_flash_attention": (packed_flash_attention,
+                                            packed_flash_attention_reference)}[entry]
+    qkv, mask = _inputs(B, S, H * D, seed=7 * S + D)
+    qkv = torch.from_numpy(qkv).to(cuda, dtype)
+    mask = torch.from_numpy(mask).to(cuda)
+    before = LAUNCH_COUNTS[entry]
+    got = fn(qkv, H, mask).float()
+    assert LAUNCH_COUNTS[entry] == before + 1
+    want = plain(qkv.float(), H, mask)
+    assert ((got - want).abs() <= rel * want.abs() + 1e-4).all()
+    uniform = qkv[2, :, 2 * H * D:].float().mean(0).expand(S, H * D)
+    assert ((got[2] - uniform).abs() <= rel * uniform.abs() + 1e-4).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [32, 64])
+@pytest.mark.parametrize("S", [65, 601])
+def test_packed_attention_reads_nothing_of_the_next_batch_on_card(cuda, dtype, D, S):
+    # the last tiles of batch 0 reach past S into the rows where batch 1
+    # begins: they must be read as zeros (bf16: the 3-D tensor map's fill),
+    # so batch 0 comes out bit-equal and finite whether batch 1 holds random
+    # values or NaN
+    H = 2
+    qkv, mask = _inputs(2, S, H * D, seed=S + 3 * D)
+    qkv = torch.from_numpy(qkv).to(cuda, dtype)
+    mask = torch.from_numpy(mask).to(cuda)
+    first = packed_attention(qkv, H, mask)
+    qkv[1] = float("nan")
+    second = packed_attention(qkv, H, mask)
+    assert torch.isfinite(first[0]).all()
+    assert torch.equal(first[0], second[0])
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_packed_backward_is_deterministic_on_card(cuda, dtype):
     # two launches, no atomics: the same dqkv to the bit
@@ -386,6 +436,8 @@ def test_f32_logits_near_30_take_the_3xtf32_split_on_card(cuda):
     assert ((got - set_attention_reference(q, k, v, mask)).abs() <= 1e-4).all()
     qkv = torch.cat([a.transpose(1, 2).reshape(B, S, H * D) for a in (q, k, v)], -1)
     qkv = qkv.contiguous()
+    got = packed_attention(qkv, H, mask)
+    assert ((got - packed_attention_reference(qkv, H, mask)).abs() <= 1e-4).all()
     dout = torch.randn((B, S, H * D), device=cuda)
     with torch.no_grad():
         out = packed_attention(qkv, H, mask)

@@ -1,8 +1,13 @@
 """Port: the rounding scheme of the tensor-core attention kernels (K3's
-``csrc/set_attention.cu`` and K5's ``csrc/packed_attention_bwd.cu``, the
-scheme of ``csrc/mma_tile.cuh``), emulated in plain PyTorch on the CPU and
-held to the f32 plain versions under the per-element bars of
-``chip_smoke.py``: |err| <= REL * |plain| + ABS.
+``csrc/set_attention.cu``, K1/K2's ``csrc/packed_attention.cu`` and K5's
+``csrc/packed_attention_bwd.cu``, the scheme of ``csrc/mma_tile.cuh``),
+emulated in plain PyTorch on the CPU and held to the f32 plain versions
+under the per-element bars of ``chip_smoke.py``: |err| <= REL * |plain| + ABS.
+K1/K2 in f32 run K3's forward itself on the packed layout; in bf16 they run
+on wgmma instead of mma.sync with the same scheme (64-key tiles, products of
+bf16 inputs exact, P split into a bf16 pair, each tile's P V, lo then hi,
+into fresh accumulators), so the forward cases hold for them too; their exp
+is ex2.approx (2^-22 relative, not emulated: far below the bf16 bar).
 
 f32 inputs go through 3xTF32: each operand x is split into hi = tf32(x)
 (round to nearest, ties away, to 10 mantissa bits: the low 13 bits masked)
