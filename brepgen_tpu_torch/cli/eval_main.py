@@ -1,10 +1,12 @@
-"""Evaluation CLIs: point sampling (reference ``sample_points.py``) and the
-JSD/MMD/COV metric protocol (reference ``pc_metric.py``).
+"""Evaluation CLIs: point sampling (reference ``sample_points.py``), the
+JSD/MMD/COV metric protocol (reference ``pc_metric.py``) and deduplication
+(reference ``deduplicate_cad.py`` / ``deduplicate_surfedge.py``).
 
-Port of ``brepgen_tpu/cli/eval_main.py:sample_points_main, pc_metric_main``:
+Port of ``brepgen_tpu/cli/eval_main.py``:
 
     python -m brepgen_tpu_torch.cli.eval_main sample_points --in_dir D --out_dir P
     python -m brepgen_tpu_torch.cli.eval_main pc_metric --fake P --real Q [--device cpu]
+    python -m brepgen_tpu_torch.cli.eval_main dedup --data D [--list SPLIT.pkl [--edge]]
 
 The Chamfer matrices of ``pc_metric`` go through kernel K4 on the card.
 """
@@ -48,7 +50,67 @@ def pc_metric_main(argv=None):
     print(avg)
 
 
-COMMANDS = {"sample_points": sample_points_main, "pc_metric": pc_metric_main}
+def dedup_main(argv=None) -> str:
+    """Deduplicate parsed solids (no ``--list``: the train list of the
+    discovered split, by whole-solid hash, into
+    ``<option>_data_split_<bit>bit.pkl``) or their primitives (``--list``:
+    the unique surface grids, or edge curves with ``--edge``, of the list's
+    train solids as one flat array in ``<list stem>_surface.pkl`` /
+    ``_edge.pkl``). Returns the path written."""
+    import os
+    import pickle
+
+    from brepgen_tpu_torch.cli.build import uid_to_path
+    from brepgen_tpu_torch.data.dedup import dedup_primitives, solid_hash
+    from brepgen_tpu_torch.data.discovery import discover_split
+
+    p = argparse.ArgumentParser(prog="eval_main dedup")
+    p.add_argument("--data", type=str, required=True, help="parsed pkl dir")
+    p.add_argument("--list", type=str, default=None,
+                   help="split pkl (primitive dedup mode); omit for CAD dedup")
+    p.add_argument("--edge", action="store_true")
+    p.add_argument("--bit", type=int, default=6)
+    p.add_argument("--option", type=str, default="abc", choices=["abc", "deepcad", "furniture"])
+    p.add_argument("--split_json", type=str, default="train_val_test_split.json",
+                   help="official DeepCAD split (the reference reads it from the cwd)")
+    args = p.parse_args(argv)
+
+    if args.list is None:
+        # CAD dedup (reference deduplicate_cad.py:23-72): only the training
+        # list is deduplicated; val and test stay as discovered
+        train_uids, val, test = discover_split(args.data, args.option,
+                                               split_json=args.split_json)
+        seen, train = set(), []
+        for uid in train_uids:
+            with open(uid_to_path(args.data, uid), "rb") as fh:
+                data = pickle.load(fh)
+            h = solid_hash(data["surf_wcs"], args.bit)
+            if h not in seen:
+                seen.add(h)
+                train.append(uid)
+        out = f"{args.option}_data_split_{args.bit}bit.pkl"
+        with open(out, "wb") as fh:
+            pickle.dump({"train": train, "val": val, "test": test}, fh)
+        print(f"{len(train)}/{len(train_uids)} unique train"
+              f" (+{len(val)} val, +{len(test)} test) -> {out}")
+        return out
+
+    with open(args.list, "rb") as fh:
+        uids = pickle.load(fh)["train"]
+    samples = []
+    for uid in uids:
+        with open(uid_to_path(args.data, uid), "rb") as fh:
+            samples.append(pickle.load(fh))
+    arr = dedup_primitives(samples, "edge" if args.edge else "surface", args.bit)
+    out = args.list.split(".")[0] + ("_edge.pkl" if args.edge else "_surface.pkl")
+    with open(out, "wb") as fh:
+        pickle.dump(arr, fh)
+    print(f"{len(arr)} unique primitives -> {out}")
+    return out
+
+
+COMMANDS = {"sample_points": sample_points_main, "pc_metric": pc_metric_main,
+            "dedup": dedup_main}
 
 
 def main(argv=None):

@@ -9,11 +9,18 @@ default) or the CPU. The edge stages attend through the CUDA kernels: K1
 forward and K5 backward in every layer of every step. The frozen VAEs come
 from npz packs (``--surfvae``/``--edgevae``, the extension may be left off)
 at the architecture the pack holds. ``--bf16`` runs the step under
-``torch.autocast`` in bf16 over f32 parameters and optimizer state. Writes
+``torch.autocast`` in bf16 over f32 parameters and optimizer state; the
+frozen encodes run in the same type wherever they run. Writes
 ``<dir_name>/<env>/epoch_N.npz`` (the format both packages load), a resume
-file ``latest.pt`` and ``<env>.jsonl`` metrics. ``--cache_latents``,
-``--dp``, ``--profile`` and ``--remat dots`` are not ported yet and exit with
-a message.
+file ``latest.pt`` and ``<env>.jsonl`` metrics.
+
+``--cache_latents`` encodes each distinct face and edge grid once, in the
+batch producer's thread, and hands the steps the latents (refused with
+``--data_aug``); ``--profile DIR`` writes a ``torch.profiler`` trace of
+steps 10-29 (or to the end of their epoch) to ``DIR/trace.json`` and prints
+the device idle share; ``--remat dots`` keeps the outputs of the dense
+products and recomputes the rest of each layer in the backward. ``--dp``
+waits for multi-GPU (ROADMAP queue 1, item 4) and exits with a message.
 """
 
 from __future__ import annotations
@@ -44,6 +51,7 @@ from brepgen_tpu_torch.data.assembly import (
     assemble_surfz,
     filter_sample,
 )
+from brepgen_tpu_torch.data.latent_cache import LatentCache
 from brepgen_tpu_torch.data.loader import Batcher, prefetch_to_device
 from brepgen_tpu_torch.data.synthetic import make_dataset
 from brepgen_tpu_torch.diffusion.ddpm import make_ddpm_tables
@@ -54,6 +62,7 @@ from brepgen_tpu_torch.train.common import TrainState, make_ldm_optimizer
 from brepgen_tpu_torch.train.logging import MetricsLogger
 from brepgen_tpu_torch.train.loop import RESUME_FILE, run_training
 from brepgen_tpu_torch.train.vae_train import make_encoder_fn
+from brepgen_tpu_torch.utils.profiling import StepTrace
 
 BATCH_KEYS = {
     "surfpos": ("surfpos",),
@@ -63,7 +72,9 @@ BATCH_KEYS = {
 }
 SMALL = dict(width=32, num_heads=2, ffn_width=64, num_layers=1)
 # what is not ported yet, and the ROADMAP item it waits for
-NOT_PORTED = "is not ported yet (ROADMAP queue 1, item 1: the rest of training)"
+NOT_PORTED = "is not ported yet (ROADMAP queue 1, item 4: multi-GPU)"
+CACHE_NEEDS_NO_AUG = ("--cache_latents requires --data_aug off: rotation aug changes "
+                      "surf_ncs/edge_ncs every epoch (dataset.py:322,499)")
 
 
 def get_args(argv=None):
@@ -92,12 +103,16 @@ def get_args(argv=None):
     p.add_argument("--bf16", action="store_true")
     p.add_argument("--small", action="store_true", help="tiny debug architecture")
     p.add_argument("--num_workers", type=int, default=8)
-    p.add_argument("--cache_latents", action="store_true", help=f"{NOT_PORTED}")
-    p.add_argument("--profile", type=str, default=None, help=f"{NOT_PORTED}")
+    p.add_argument("--cache_latents", action="store_true",
+                   help="encode each distinct grid once through the frozen VAEs (a host "
+                        "content cache) instead of in every step; requires --data_aug off")
+    p.add_argument("--profile", type=str, default=None,
+                   help="torch.profiler trace dir: steps 10-29, or to the end of their "
+                        "epoch; prints the device idle share")
     p.add_argument("--remat", choices=("auto", "on", "off", "dots"), default="auto",
                    help="per-layer recompute in the backward; auto turns it on when B x "
                         "tokens reaches 32768 (the edge stages at reference batch sizes); "
-                        f"'dots' {NOT_PORTED}")
+                        "'dots' saves the dense products' outputs and recomputes the rest")
     p.add_argument("--assembly", choices=("batched", "per_sample"), default="batched",
                    help="host batch assembly: one vectorized call per batch (default; "
                         "same draws as per-sample) or the per-sample path")
@@ -113,13 +128,21 @@ def get_args(argv=None):
 
 
 def refuse_unported(args) -> None:
-    """Exit with a message for an option that waits for a later slice; it
-    never falls back silently."""
-    for flag, on in (("--cache_latents", args.cache_latents), ("--dp", args.dp),
-                     ("--profile", args.profile is not None),
-                     ("--remat dots", args.remat == "dots")):
-        if on:
-            raise SystemExit(f"ldm_main: {flag} {NOT_PORTED}")
+    """Exit with a message for an option that waits for a later slice or
+    that the reference refuses; it never falls back silently."""
+    if args.dp:
+        raise SystemExit(f"ldm_main: --dp {NOT_PORTED}")
+    if args.cache_latents and args.data_aug:
+        raise SystemExit(CACHE_NEEDS_NO_AUG)
+
+
+def remat_of(args):
+    """The denoiser's remat: "dots", True (on, or auto at production
+    sizes) or False."""
+    if args.remat == "dots":
+        return "dots"
+    return args.remat == "on" or (args.remat == "auto" and auto_remat(
+        args.option, args.batch_size, args.max_face, args.max_edge))
 
 
 def make_assemble_fn(args):
@@ -185,10 +208,21 @@ def load_filtered_samples(args, split):
     return kept, kept_labels
 
 
-def to_batch(args, raw):
-    """A Batcher tuple -> dict of numpy arrays keyed as the steps read them."""
+def to_batch(args, raw, surf_cache: Optional[LatentCache] = None,
+             edge_cache: Optional[LatentCache] = None):
+    """A Batcher tuple -> dict of numpy arrays keyed as the steps read them;
+    with a cache, "surfpnt" / "edgepnt" give way to their latents "surfz"
+    [B, nf, 48] / "edgez" [B, nf, ne, 12]."""
     keys = BATCH_KEYS[args.option]
     batch = dict(zip(keys, raw))
+    if surf_cache is not None and "surfpnt" in batch:
+        v = batch.pop("surfpnt")
+        B, nf = v.shape[:2]
+        batch["surfz"] = surf_cache(v.reshape(B * nf, 32, 32, 3)).reshape(B, nf, 48)
+    if edge_cache is not None and "edgepnt" in batch:
+        v = batch.pop("edgepnt")
+        B, nf, ne = v.shape[:3]
+        batch["edgez"] = edge_cache(v.reshape(B * nf * ne, 32, 3)).reshape(B, nf, ne, 12)
     if len(raw) > len(keys):  # trailing class labels
         batch["class_label"] = raw[len(keys)]
     return batch
@@ -209,11 +243,15 @@ def load_vae(option: str, path: str, device: torch.device):
 @dataclass
 class TrainRun:
     """What ``train`` leaves: the state, the validation calls it made (one
-    per batch and fixed t) and the metrics file."""
+    per batch and fixed t), the metrics file, the latent caches
+    (``--cache_latents``) and the trace window (``--profile``)."""
 
     state: TrainState
     val_calls: int = 0
     metrics_path: str = ""
+    surf_cache: Optional[LatentCache] = None
+    edge_cache: Optional[LatentCache] = None
+    trace: Optional[StepTrace] = None
 
 
 def train(args) -> TrainRun:
@@ -221,8 +259,7 @@ def train(args) -> TrainRun:
     device = resolve_device(args.device)
     os.makedirs(args.save_dir, exist_ok=True)
     compute_dtype = torch.bfloat16 if args.bf16 else None
-    remat = args.remat == "on" or (args.remat == "auto" and auto_remat(
-        args.option, args.batch_size, args.max_face, args.max_edge))
+    remat = remat_of(args)
 
     init_gen = torch.Generator().manual_seed(args.seed)
     kw = dict(SMALL) if args.small else {}
@@ -233,9 +270,9 @@ def train(args) -> TrainRun:
 
     surf_encode = edge_encode = None
     if args.option in ("surfz", "edgepos", "edgez"):
-        surf_encode = make_encoder_fn(load_vae("surface", args.surfvae, device))
+        surf_encode = make_encoder_fn(load_vae("surface", args.surfvae, device), compute_dtype)
     if args.option == "edgez":
-        edge_encode = make_encoder_fn(load_vae("edge", args.edgevae, device))
+        edge_encode = make_encoder_fn(load_vae("edge", args.edgevae, device), compute_dtype)
 
     generator = torch.Generator().manual_seed(args.seed + 2)
     resume = os.path.join(args.save_dir, RESUME_FILE)
@@ -261,16 +298,26 @@ def train(args) -> TrainRun:
     val_ts = (ldm_train.VAL_STEPS_SURF if args.option in ("surfpos", "surfz")
               else ldm_train.VAL_STEPS_EDGE)
     run = TrainRun(state)
+    if args.cache_latents and surf_encode is not None:
+        bucket = min(1024, args.batch_size * args.max_face)
+        run.surf_cache = LatentCache(surf_encode, (32, 32, 3), 48, bucket, device)
+        if edge_encode is not None:
+            run.edge_cache = LatentCache(edge_encode, (32, 3), 12, bucket, device)
+        print("latent cache enabled (frozen-VAE encodes hoisted off the step)")
+    if args.profile is not None:
+        run.trace = StepTrace(args.profile)
+
+    def batches(b):
+        return (to_batch(args, raw, run.surf_cache, run.edge_cache) for raw in b)
 
     def epoch_iter():
-        return prefetch_to_device((to_batch(args, raw) for raw in batcher), device)
+        return prefetch_to_device(batches(batcher), device)
 
     def val_fn(state):
         metrics = {}
         for t_fixed in val_ts:
             total = count = 0.0
-            for batch in prefetch_to_device((to_batch(args, raw) for raw in val_batcher),
-                                            device):
+            for batch in prefetch_to_device(batches(val_batcher), device):
                 s, c = val_step(batch, t_fixed, generator)
                 total += float(s)
                 count += float(c)
@@ -286,7 +333,8 @@ def train(args) -> TrainRun:
             run_training(step_fn, epoch_iter, state, epochs=args.train_nepoch,
                          generator=generator, logger=logger, ckpt_dir=args.save_dir,
                          val_fn=val_fn if len(val_samples) else None,
-                         test_nepoch=args.test_nepoch, save_nepoch=args.save_nepoch)
+                         test_nepoch=args.test_nepoch, save_nepoch=args.save_nepoch,
+                         trace=run.trace)
             print(f"trained {args.option}: {state.step} steps in "
                   f"{time.perf_counter() - t0:.2f} s; metrics in {logger.path}", flush=True)
     finally:

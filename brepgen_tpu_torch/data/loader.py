@@ -186,6 +186,26 @@ class Batcher:
             yield batch
 
 
+def flat_vae_batcher(grids: np.ndarray, batch_size: int, seed: int = 0,
+                     aug_fn: Optional[Callable] = None) -> Callable[[], Iterator[np.ndarray]]:
+    """Epoch iterator over a flat array of deduplicated VAE training items
+    (the reference trains the VAEs on flat dedup arrays,
+    ``dataset.py:145-151``): each call of the returned function is one
+    epoch in the order of ``default_rng(seed)``'s next permutation, the last
+    partial batch dropped; ``aug_fn(batch, rng)`` draws from the same rng."""
+    rng = np.random.default_rng(seed)
+
+    def gen():
+        order = rng.permutation(len(grids))
+        for start in range(0, len(order) - batch_size + 1, batch_size):
+            batch = grids[order[start: start + batch_size]]
+            if aug_fn is not None:
+                batch = aug_fn(batch, rng)
+            yield batch
+
+    return gen
+
+
 def prefetch_to_device(iterator: Iterable, device: torch.device,
                        lookahead: int = 2) -> Iterator:
     """Yield the batches of ``iterator`` (tuples or dicts of numpy arrays)

@@ -12,13 +12,20 @@ length picks the kernel by the JAX layer's rule (``attention_route``); every
 route is differentiable (K1's backward is kernel K5).
 
 ``remat`` True or "full" recomputes each layer in the backward
-(``torch.utils.checkpoint``; the recompute launches K1 again). Each layer's
+(``torch.utils.checkpoint``; the recompute launches K1 again). ``"dots"`` is
+selective checkpointing, the counterpart of JAX's
+``dots_with_no_batch_dims_saveable`` (``brepgen_tpu/nn/transformer.py:
+134-150``): the outputs of the dense products (``aten.mm`` / ``addmm``: qkv,
+proj, fc1, fc2) are kept, and the rest of the layer, the attention kernel
+included, is recomputed; the kernels are autograd functions whose forward
+reruns in the recompute, so K1 still launches twice per layer. Each layer's
 dropout masks come from a seed drawn before the layer runs, so the recompute
 draws the same masks.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -118,7 +125,19 @@ class EncoderLayer(nn.Module):
         return x + drop(self.fc2(drop(F.relu(self.fc1(self.norm2(x))))))
 
 
-REMATS = (False, True, "full")
+REMATS = (False, True, "full", "dots")
+# the dense products whose outputs "dots" keeps: dot_generals with no batch
+# dims in JAX; the attention's batched products (bmm) are recomputed
+DOTS_SAVED = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def dots_policy(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of ``remat="dots"``: keep the dense
+    products, recompute everything else (fresh outputs of the kernels'
+    ``torch.empty`` included, so their forward runs again)."""
+    if op in DOTS_SAVED:
+        return torch.utils.checkpoint.CheckpointPolicy.MUST_SAVE
+    return torch.utils.checkpoint.CheckpointPolicy.PREFER_RECOMPUTE
 
 
 class TransformerEncoder(nn.Module):
@@ -126,15 +145,11 @@ class TransformerEncoder(nn.Module):
                  num_layers: int = 12, attn_impl: str = "plain", dropout: float = 0.1,
                  remat=False):
         super().__init__()
-        if remat == "dots":
-            raise ValueError(
-                "remat='dots' (selective checkpointing: save the dense outputs, recompute "
-                "the rest) is not ported yet (ROADMAP queue 1); use True/'full' or False")
         if remat not in REMATS:
             raise ValueError(f"remat must be one of {REMATS}, got {remat!r}")
         self.num_layers = num_layers
         self.dropout = dropout
-        self.remat = bool(remat)
+        self.remat = "dots" if remat == "dots" else bool(remat)
         for i in range(num_layers):  # attribute names are the flax scopes
             setattr(self, f"layer_{i}",
                     EncoderLayer(width, num_heads, ffn_width, attn_impl, dropout))
@@ -154,8 +169,12 @@ class TransformerEncoder(nn.Module):
             if drop:
                 seed = int(torch.randint(0, 2 ** 62, (1,), generator=generator))
             if self.remat and torch.is_grad_enabled():
+                kw = {}
+                if self.remat == "dots":
+                    kw["context_fn"] = functools.partial(
+                        torch.utils.checkpoint.create_selective_checkpoint_contexts, dots_policy)
                 x = torch.utils.checkpoint.checkpoint(layer, x, key_padding_mask, seed,
-                                                      use_reentrant=False)
+                                                      use_reentrant=False, **kw)
             else:
                 x = layer(x, key_padding_mask, seed)
         return self.final_norm(x)

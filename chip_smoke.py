@@ -20,9 +20,18 @@ solids scored against reference clouds drawn from ``--seed`` through the
 Chamfer kernel; then the training CLI trains the edgez denoiser at the
 production width in bf16 (K1 forward and K5 backward in every layer of every
 step), its pack is reloaded, and one f32 step through the kernels is held
-against the same step through plain attention. It checks shapes,
-finiteness, masks, solids, agreement of the compacted and full runs, the
-gradients, and kernel launch counts. Each
+against the same step through plain attention. Phase pipeline then runs the
+user's workflow from solids, in a temporary directory under ``build/``:
+``process_main --synthetic``, ``eval_main dedup`` for surfaces and edges,
+``vae_main`` for both VAEs at production width in bf16 (the packs reload
+with a bit-equal decode; a B=512 edge step timed), ``ldm_main`` on edgez
+with ``--cache_latents`` and ``--profile`` on those solids and packs (K1 and
+K5 launch counts, the cache's hits and misses, the trace's device idle
+share), the same run encoding in the step, the cache's latents from a
+producer thread against the step's encode, and one f32 step with ``--remat
+dots`` against ``--remat on`` (gradients, K1 launches, peak memory). It
+checks shapes, finiteness, masks, solids, agreement of the compacted and
+full runs, the gradients, and kernel launch counts. Each
 phase prints one line with its seconds. The last lines are one JSON object
 of kernel measurements and the result line. Any failure raises and exits
 non-zero; without a CUDA card it exits 1 and prints no result. It imports
@@ -516,6 +525,328 @@ def phase_train(torch, np, work):
                 launches=counts["packed_attention_backward"], k1_launches=counts["packed_attention"],
                 steps=steps, val_calls=val_calls, seconds=seconds, ms_per_step=ms_per_step, losses=losses, validation=vals,
                 reload_max_abs_diff=reload_diff, f32_grad_rel=rel, f32_grad_worst=worst)
+
+
+# Phase pipeline: the user's workflow from solids to a cached LDM run, at
+# production width, in a temporary directory under build/. 2300 synthetic
+# solids deduplicate to 1498 (1200 in the train split, 9 steps of B=128 an
+# epoch), so epoch 2 holds steps 9-17 and the --profile window (step 10 to
+# the end of its epoch, as the JAX CLI closes it) traces steps 10-17.
+PIPELINE_SOLIDS = 2300
+VAE_EPOCHS = 3
+LDM_ARGS = ("--option", "edgez", "--bf16", "--max_face", "30", "--max_edge", "20",
+            "--batch_size", "128", "--num_workers", "0")
+# the remat "dots" step against remat "on": gradients per tensor within
+# DOTS_REL of the tensor's largest plus DOTS_ABS of the overall largest (the
+# train phase's bar; the two recompute the same arithmetic)
+DOTS_REL, DOTS_ABS = 1e-3, 1e-5
+
+
+def epoch_ms_per_step(metrics_path, skip=1):
+    """(ms per step over the epochs after the first ``skip``, the logged
+    losses, those epochs' records) from a training run's metrics file."""
+    with open(metrics_path) as f:
+        records = [json.loads(line) for line in f]
+    epochs = [r for r in records if "epoch_seconds" in r][skip:]
+    steps = sum(r["epoch_steps"] for r in epochs)
+    ms = 1e3 * sum(r["epoch_seconds"] for r in epochs) / steps if steps else float("nan")
+    return ms, [r["loss"] for r in records if "loss" in r], epochs
+
+
+def distinct_rows(np, arrays):
+    """The count of distinct grids among ``arrays`` [n, ...], taken in f32."""
+    return len({row.tobytes() for a in arrays
+                for row in np.ascontiguousarray(a, np.float32).reshape(len(a), -1)})
+
+
+def phase_pipeline(torch, np, work):
+    """process_main -> dedup_main x2 -> vae_main x2 -> ldm_main edgez with
+    --cache_latents and --profile, then the same run without the cache, then
+    --remat dots against --remat on; each CLI called as a user would, from
+    ``work`` as the working directory."""
+    import pickle
+    import threading
+
+    from brepgen_tpu_torch.cli import eval_main, ldm_main, process_main, vae_main
+    from brepgen_tpu_torch.cli.build import build_denoiser, build_vae, seed_weights, uid_to_path
+    from brepgen_tpu_torch.data.batch_assembly import assemble_edgez_batched
+    from brepgen_tpu_torch.data.latent_cache import LatentCache
+    from brepgen_tpu_torch.diffusion.ddpm import make_ddpm_tables
+    from brepgen_tpu_torch.kernels import LAUNCH_COUNTS, reset_launch_counts
+    from brepgen_tpu_torch.train import ldm_train, vae_train
+    from brepgen_tpu_torch.train.checkpoint import load_params
+    from brepgen_tpu_torch.train.common import TrainState, make_vae_optimizer
+    from brepgen_tpu_torch.utils.profiling import (
+        TRACE_FILE,
+        device_trace,
+        format_summary,
+        summarize_trace,
+    )
+
+    out = {}
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        t = time.perf_counter()
+        split_path = process_main.main(["--synthetic", str(PIPELINE_SOLIDS), "--output", "parsed",
+                                        "--option", "deepcad"])
+        with open(split_path, "rb") as f:
+            split = pickle.load(f)
+        lists = {kind: eval_main.dedup_main(["--data", "parsed", "--list", split_path, *extra])
+                 for kind, extra in (("surface", []), ("edge", ["--edge"]))}
+        counts = {}
+        for kind, path in lists.items():
+            with open(path, "rb") as f:
+                counts[kind] = len(pickle.load(f))
+        log(f"pipeline: process_main --synthetic {PIPELINE_SOLIDS}: "
+            + ", ".join(f"{len(v)} {k}" for k, v in split.items())
+            + f" solids; dedup_main: {counts['surface']} surfaces, {counts['edge']} edges; "
+            f"{time.perf_counter() - t:.2f} s")
+        out.update(solids={k: len(v) for k, v in split.items()}, dedup=counts)
+
+        # the VAEs (train_vae.sh at production width in bf16); the edge set
+        # is smaller than a 512 batch, where the drop-last epoch trains no
+        # step, so its CLI run takes batches of 16
+        packs, vae_rows = {}, {}
+        for option, batch in (("surface", 512), ("edge", 16)):
+            t = time.perf_counter()
+            e = str(VAE_EPOCHS)
+            state = vae_main.main([
+                "--option", option, "--bf16", "--batch_size", str(batch), "--data", "parsed",
+                "--train_list", lists[option], "--val_list", split_path, "--train_nepoch", e,
+                "--test_nepoch", e, "--save_nepoch", e, "--dir_name", "vae", "--env", option])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t
+            ms, losses, _ = epoch_ms_per_step(os.path.join("vae", option, f"{option}.jsonl"))
+            packs[option] = os.path.join(work, "vae", option, f"epoch_{VAE_EPOCHS}.npz")
+            fresh = load_params(packs[option], build_vae(option)).to("cuda")
+            shape = (4, 4, 4, 3) if option == "surface" else (4, 4, 3)
+            z = torch.randn(shape, generator=torch.Generator().manual_seed(0)).to("cuda")
+            state.module.eval()
+            with torch.no_grad():
+                reload_diff = (fresh.decode(z) - state.module.decode(z)).abs().max().item()
+            if (state.step < VAE_EPOCHS or reload_diff != 0.0 or not losses
+                    or not np.isfinite(losses).all()):
+                raise AssertionError(f"pipeline: {option} VAE: {state.step} steps, losses "
+                                     f"{losses}, reloaded decode differs by {reload_diff}")
+            vae_rows[option] = dict(steps=state.step, batch=batch, seconds=seconds,
+                                    ms_per_step=ms, losses=losses)
+            log(f"pipeline: vae_main --option {option} --bf16 --batch_size {batch}: "
+                f"{state.step} steps in {seconds:.2f} s (whole run); {ms:.1f} ms per step "
+                f"after the first epoch; losses " + ", ".join(f"{x:.5f}" for x in losses)
+                + f"; epoch_{VAE_EPOCHS}.npz reloads strictly with a bit-equal decode")
+            del state, fresh
+            torch.cuda.empty_cache()
+
+        # a B=512 train step of each VAE at production width (the edge set is
+        # tiled to 512): timed over 5 steps after 2, then 2 steps traced
+        for option in ("surface", "edge"):
+            with open(lists[option], "rb") as f:
+                grids = np.asarray(pickle.load(f), np.float32)
+            batch = torch.from_numpy(np.resize(grids, (512,) + grids.shape[1:])).to("cuda")
+            model = seed_weights(build_vae(option), torch.Generator().manual_seed(0)).to("cuda")
+            state = TrainState(model, make_vae_optimizer(model.parameters()))
+            step = vae_train.make_train_step(model, torch.bfloat16)
+            gen = torch.Generator().manual_seed(1)
+            for _ in range(2):
+                step(state, batch, gen)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            losses = [step(state, batch, gen)["loss"] for _ in range(5)]
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t) / 5
+            trace_dir = os.path.join(work, f"vae_trace_{option}")
+            with device_trace(trace_dir):
+                for _ in range(2):
+                    step(state, batch, gen)
+            summary = summarize_trace(os.path.join(trace_dir, TRACE_FILE))
+            vae_rows[option].update(ms_per_step_b512=ms, trace_b512=summary)
+            log(f"pipeline: {option} VAE train step at B=512, production width, bf16: "
+                f"{ms:.2f} ms (5 steps after 2; losses "
+                + ", ".join(f"{float(x):.5f}" for x in losses)
+                + f"); 2 steps traced: {format_summary(summary)}")
+            del model, state, step, batch
+            torch.cuda.empty_cache()
+        out["vae"] = vae_rows
+
+        # the cached, profiled edgez run and the same run encoding in the step
+        vae_args = ("--surfvae", packs["surface"], "--edgevae", packs["edge"])
+        runs = {}
+        for name, extra, epochs in (("cached", ("--cache_latents", "--profile", "trace"), 3),
+                                    ("encoded", (), 2)):
+            e = str(epochs)
+            args = ldm_main.get_args([*LDM_ARGS, *vae_args, "--data", "parsed", "--list",
+                                      split_path, "--train_nepoch", e, "--test_nepoch", e,
+                                      "--save_nepoch", e, "--dir_name", "ldm", "--env", name,
+                                      *extra])
+            t = time.perf_counter()
+            reset_launch_counts()
+            run = ldm_main.train(args)
+            torch.cuda.synchronize()
+            launches = dict(LAUNCH_COUNTS)
+            seconds = time.perf_counter() - t
+            model, steps, val_calls = run.state.module, run.state.step, run.val_calls
+            layers = model.encoder.num_layers
+            want = dict(packed_attention_backward=layers * steps,
+                        packed_attention=2 * layers * steps + layers * val_calls)
+            others = {k: v for k, v in launches.items() if k not in want and v}
+            if others or any(launches[k] != v for k, v in want.items()) or not val_calls:
+                raise AssertionError(f"pipeline: {name}: {steps} steps, {val_calls} validation "
+                                     f"calls; launches {launches}, expected {want}")
+            ms, losses, epochs_rec = epoch_ms_per_step(run.metrics_path,
+                                                       skip=2 if name == "cached" else 1)
+            if not losses or not np.isfinite(losses).all():
+                raise AssertionError(f"pipeline: {name}: losses {losses}")
+            runs[name] = dict(steps=steps, val_calls=val_calls, seconds=seconds, ms_per_step=ms,
+                              launches=launches["packed_attention_backward"],
+                              k1_launches=launches["packed_attention"], losses=losses,
+                              epoch_seconds=[r["epoch_seconds"] for r in epochs_rec])
+            if name == "cached":
+                cached_run = run
+            del model
+            log(f"pipeline: ldm_main {' '.join(LDM_ARGS)} {' '.join(extra)}: {steps} steps in "
+                f"{seconds:.2f} s (whole run); {ms:.1f} ms per step over the last epoch"
+                f"{'' if name == 'cached' else ' after the first'}; K5 launches "
+                f"{launches['packed_attention_backward']} = {layers} x {steps}, K1 "
+                f"{launches['packed_attention']} = 2 x {layers} x {steps} + {layers} x "
+                f"{val_calls} validation calls")
+
+        # the cache: every miss a distinct grid of the solids (or the padding's
+        # zero grid), repeats hit
+        grids = {"surf_ncs": [], "edge_ncs": []}
+        for uid in split["train"] + split["val"]:
+            with open(uid_to_path("parsed", uid), "rb") as f:
+                data = pickle.load(f)
+            for k in grids:
+                grids[k].append(data[k])
+        caches = dict(surface=cached_run.surf_cache, edge=cached_run.edge_cache)
+        for (kind, cache), key in zip(caches.items(), grids):
+            distinct = distinct_rows(np, grids[key]) + 1
+            if not (0 < cache.misses <= distinct and cache.hits > 0):
+                raise AssertionError(f"pipeline: {kind} cache: {cache.misses} misses against "
+                                     f"{distinct} distinct grids, {cache.hits} hits")
+        runs["cached"]["cache"] = {k: dict(hits=c.hits, misses=c.misses) for k, c in caches.items()}
+        # the host's share: one step's lookups, all hits, on the host clock
+        for (kind, cache), key, n in zip(caches.items(), grids, (128 * 30, 128 * 30 * 20)):
+            flat = np.concatenate(grids[key]).astype(np.float32)
+            rows = np.resize(flat, (n,) + flat.shape[1:])
+            misses = cache.misses
+            t = time.perf_counter()
+            cache(rows)
+            runs["cached"]["cache"][kind]["lookup_ms_per_step"] = 1e3 * (time.perf_counter() - t)
+            if cache.misses != misses:
+                raise AssertionError(f"pipeline: {kind} cache missed grids it had seen")
+
+        # the trace: the device idle share of the traced window
+        trace = cached_run.trace
+        if trace is None or trace.path is None or not os.path.isfile(trace.path):
+            raise AssertionError("pipeline: --profile wrote no trace")
+        summary = summarize_trace(trace.path)
+        if summary["device_idle_share"] is None or trace.first_step != 10 or trace.last_step < 16:
+            raise AssertionError(f"pipeline: trace of steps {trace.first_step}-"
+                                 f"{trace.last_step}: {summary}")
+        runs["cached"]["trace"] = dict(summary, steps=[trace.first_step, trace.last_step],
+                                       megabytes=os.path.getsize(trace.path) / 2 ** 20)
+        log(f"pipeline: trace of steps {trace.first_step}-{trace.last_step} "
+            f"({os.path.getsize(trace.path) / 2 ** 20:.1f} MB): {format_summary(summary)}")
+        log(f"pipeline: edgez bf16 step with --cache_latents {runs['cached']['ms_per_step']:.1f} "
+            f"ms, encoding in the step {runs['encoded']['ms_per_step']:.1f} ms; cache "
+            + ", ".join(f"{k} {v['hits']} hits / {v['misses']} misses, one step's lookups "
+                        f"{v['lookup_ms_per_step']:.1f} ms on the host"
+                        for k, v in runs["cached"]["cache"].items()))
+
+        # the cache's latents, encoded in a thread of its own as the batch
+        # producer does, against the step's encode under the step's autocast
+        edge_encode = vae_train.make_encoder_fn(ldm_main.load_vae("edge", packs["edge"], "cuda"),
+                                                torch.bfloat16)
+        flat = np.concatenate(grids["edge_ncs"]).astype(np.float32)
+        rows = flat[np.unique(flat.reshape(len(flat), -1), axis=0, return_index=True)[1]]
+        rows = np.resize(rows, (1024,) + rows.shape[1:])
+        cache = LatentCache(edge_encode, (32, 3), 12, bucket=1024, device="cuda")
+        held = {}
+        worker = threading.Thread(target=lambda: held.update(z=cache(rows)))
+        worker.start()
+        worker.join()
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            z_step = edge_encode(torch.from_numpy(rows).to("cuda")).reshape(1024, 12).cpu().numpy()
+        f32 = vae_train.make_encoder_fn(ldm_main.load_vae("edge", packs["edge"], "cuda"))
+        z_f32 = f32(torch.from_numpy(rows).to("cuda")).reshape(1024, 12).cpu().numpy()
+        cache_diff = float(np.abs(held["z"] - z_step).max())
+        f32_diff = float(np.abs(z_f32 - z_step).max())
+        if cache_diff > 1e-6:
+            raise AssertionError(f"pipeline: the cache's latents differ from the step's encode "
+                                 f"by {cache_diff:.3e} (an f32 encode differs by {f32_diff:.3e})")
+        log(f"pipeline: cache latents encoded in a producer thread against the step's bf16 "
+            f"encode: max abs diff {cache_diff:.3e} (the same grids encoded in f32 differ by "
+            f"{f32_diff:.3e})")
+        runs["cached"].update(latent_max_abs_diff=cache_diff, latent_f32_max_abs_diff=f32_diff)
+        out["ldm"] = runs
+        del cached_run, edge_encode, f32
+        torch.cuda.empty_cache()
+
+        # --remat dots against --remat on: one f32 edgez step at production
+        # width, B=128, the same parameters, batch, draws and dropout seeds
+        solids = []
+        for uid in split["train"][:128]:
+            with open(uid_to_path("parsed", uid), "rb") as f:
+                solids.append(pickle.load(f))
+        raw = assemble_edgez_batched(solids, list(range(128)), max_face=30, max_edge=20)
+        batch = {k: torch.from_numpy(v).to("cuda")
+                 for k, v in zip(ldm_main.BATCH_KEYS["edgez"], raw)}
+        # the latents enter the batch, as with --cache_latents, so the peak
+        # memory is the denoiser's and not the frozen encoders'
+        encode = {o: vae_train.make_encoder_fn(ldm_main.load_vae(o, packs[o], "cuda"))
+                  for o in ("surface", "edge")}
+        batch["surfz"] = ldm_train.encode_surf(encode["surface"], batch.pop("surfpnt"))
+        batch["edgez"] = ldm_train.encode_edge(encode["edge"], batch.pop("edgepnt"))
+        del encode
+        torch.cuda.empty_cache()
+        grads = {}
+        for remat in (True, "dots"):
+            net = build_denoiser("edgez", remat=remat)
+            layers = net.encoder.num_layers
+            net = seed_weights(net, torch.Generator().manual_seed(2)).to("cuda")
+            step = ldm_train.make_edgez_step(net, make_ddpm_tables(), None, None)
+            capture = GradCapture(net)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()
+            loss = float(step(TrainState(net, capture), batch, torch.Generator().manual_seed(3))
+                         ["loss"])
+            torch.cuda.synchronize()
+            grads[remat] = dict(grads=capture.grads, loss=loss, launches=dict(LAUNCH_COUNTS),
+                                peak_bytes=torch.cuda.max_memory_allocated())
+            t = time.perf_counter()  # a second step from the same state, timed
+            step(TrainState(net, capture), batch, torch.Generator().manual_seed(3))
+            torch.cuda.synchronize()
+            grads[remat]["seconds"] = time.perf_counter() - t
+            del net, step, capture
+            torch.cuda.empty_cache()
+        on, dots = grads[True], grads["dots"]
+        overall = max(g.abs().max().item() for g in on["grads"].values())
+        worst, worst_name = max(
+            ((dots["grads"][k] - g).abs().max().item()
+             / (DOTS_REL * g.abs().max().item() + DOTS_ABS * overall), k)
+            for k, g in on["grads"].items())
+        if (set(on["grads"]) != set(dots["grads"]) or worst > 1.0
+                or on["launches"] != dots["launches"]
+                or on["launches"]["packed_attention"] != 2 * layers):
+            raise AssertionError(f"pipeline: remat dots against on: worst tensor {worst_name} "
+                                 f"at {worst:.3e} of its bar, launches {on['launches']} / "
+                                 f"{dots['launches']}, losses {on['loss']} / {dots['loss']}")
+        out["remat"] = {name: dict(loss=g["loss"], peak_gib=g["peak_bytes"] / 2 ** 30,
+                                   seconds=g["seconds"], k1_launches=g["launches"]["packed_attention"])
+                        for name, g in (("on", on), ("dots", dots))}
+        out["remat"]["worst_share_of_bar"] = worst
+        log(f"pipeline: f32 edgez step at B=128 S=600, remat dots against on: loss "
+            f"{dots['loss']:.6f} / {on['loss']:.6f}, worst tensor {worst_name} at "
+            f"{worst:.3e} of its bar ({DOTS_REL:g} of its largest + {DOTS_ABS:g} of the "
+            f"overall largest); K1 launches {dots['launches']['packed_attention']} each; peak "
+            f"memory {dots['peak_bytes'] / 2 ** 30:.2f} GiB dots, {on['peak_bytes'] / 2 ** 30:.2f}"
+            f" GiB on; second step {dots['seconds']:.3f} s / {on['seconds']:.3f} s")
+    finally:
+        os.chdir(cwd)
+    return out
 
 
 def chamfer_bound(S, R, P, n):
@@ -1101,6 +1432,17 @@ def main(argv=None) -> int:
         t = time.perf_counter()
         training = phase_train(torch, np, os.path.join(work, "train"))
         log(f"phase train done in {time.perf_counter() - t:.2f} s")
+        torch.cuda.empty_cache()
+
+    t = time.perf_counter()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as work:
+        pipeline = phase_pipeline(torch, np, work)
+    cached = pipeline["ldm"]["cached"]
+    pipeline_path = dict(path="pipeline (ldm_main edgez --cache_latents --profile, production "
+                              "width, bf16, B=128, S=600, on process_main's solids and the "
+                              "VAEs just trained)", **cached)
+    log(f"phase pipeline done in {time.perf_counter() - t:.2f} s")
 
     # the top-level numbers are those of the main shape (the first of each
     # kernel's shapes: production width in f32; chamfer: the n=256 eval
@@ -1111,7 +1453,8 @@ def main(argv=None) -> int:
         kernel_entry("packed_attention", csrc + "packed_attention.cu",
                      "brepgen_tpu/kernels/attention.py:150",
                      paths["packed_attention"][0]["launches"], shapes["packed_attention"],
-                     paths["packed_attention"],
+                     paths["packed_attention"] + [dict(pipeline_path,
+                                                       launches=cached["k1_launches"])],
                      tensor_core_instructions=tensor_cores.get("packed_attention")),
         kernel_entry("packed_flash_attention", csrc + "packed_attention.cu",
                      "brepgen_tpu/kernels/attention.py:261",
@@ -1130,7 +1473,7 @@ def main(argv=None) -> int:
                      yardstick_ms=chamfer_shapes[0]["yardstick_ms"]),
         kernel_entry("packed_attention_backward", csrc + "packed_attention_bwd.cu",
                      "brepgen_tpu/kernels/attention.py:377", training["launches"],
-                     backward_shapes, [training],
+                     backward_shapes, [training, pipeline_path],
                      packed_attention_ms=backward_shapes[0]["packed_attention_ms"],
                      tensor_core_instructions=tensor_cores.get("packed_attention_bwd")),
     ]}), flush=True)

@@ -443,3 +443,24 @@ def test_f32_logits_near_30_take_the_3xtf32_split_on_card(cuda):
         out = packed_attention(qkv, H, mask)
     got = packed_attention_backward(qkv, dout, H, mask, out=out)
     assert _hold_backward(got, qkv, dout, H, mask, 0.0)
+
+
+@pytest.mark.cuda
+def test_surface_vae_bf16_step_at_production_width_on_card(cuda):
+    # the VAE CLI's step (train_vae.sh: --bf16, batch 512) on one batch of
+    # synthetic surface grids at the production widths: finite, falling loss
+    from brepgen_tpu_torch.cli import vae_main
+    from brepgen_tpu_torch.cli.build import seed_weights
+    from brepgen_tpu_torch.train import vae_train
+    from brepgen_tpu_torch.train.common import TrainState, make_vae_optimizer
+
+    args = vae_main.get_args(["--synthetic", "200", "--bf16"])
+    grids = vae_main.load_train_array(args)
+    batch = torch.from_numpy(np.resize(grids, (512,) + grids.shape[1:])).to(cuda)
+    model = seed_weights(vae_main.build_model(args), torch.Generator().manual_seed(0)).to(cuda)
+    state = TrainState(model, make_vae_optimizer(model.parameters()))
+    step = vae_train.make_train_step(model, torch.bfloat16)
+    gen = torch.Generator().manual_seed(1)
+    losses = [float(step(state, batch, gen)["loss"]) for _ in range(5)]
+    assert np.isfinite(losses).all() and losses[-1] < losses[0], losses
+    assert all(p.dtype == torch.float32 for p in model.parameters())
