@@ -6,6 +6,10 @@ FFN 1024; surface VAE (128, 256, 512, 512); edge VAE (128, 256, 512).
 ``demo`` is the architecture of the committed trained packs under
 ``artifacts/demo_round*/*/ckpt_packed/`` (``scripts/train_synthetic_demo.py``):
 width 256, 8 heads, 6 layers, FFN 512; VAEs (32, 64, 128, 128) and (32, 64, 128).
+``small`` is the CLIs' tiny debug architecture (``--small``,
+``brepgen_tpu/cli/sample_main.py:63,79-84``): width 32, 2 heads, 1 layer,
+FFN 64; VAEs (8, 8, 8, 8) and (8, 8, 8). Its head width of 16 is one the
+CUDA attention kernels refuse, so it runs on the CPU.
 """
 
 from __future__ import annotations
@@ -46,6 +50,11 @@ ARCHS = {
         denoiser=dict(width=256, num_heads=8, ffn_width=512, num_layers=6),
         surface=(32, 64, 128, 128),
         edge=(32, 64, 128),
+    ),
+    "small": dict(
+        denoiser=dict(width=32, num_heads=2, ffn_width=64, num_layers=1),
+        surface=(8, 8, 8, 8),
+        edge=(8, 8, 8),
     ),
 }
 

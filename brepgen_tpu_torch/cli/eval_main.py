@@ -40,6 +40,9 @@ def pc_metric_main(argv=None):
     p.add_argument("--times", type=int, default=10)
     p.add_argument("--seed", type=int, default=None,
                    help="seed of the cloud selection (default: unseeded, as the reference)")
+    p.add_argument("--batch_size", type=int, default=None,
+                   help="accepted for the JAX CLI's device tile size and ignored: kernel K4 "
+                        "takes every cloud pair in one launch, so results do not depend on it")
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
     avg = run_metrics(

@@ -37,6 +37,7 @@ import torch
 
 from brepgen_tpu_torch import resolve_device
 from brepgen_tpu_torch.cli.build import (
+    ARCHS,
     auto_remat,
     build_denoiser,
     resolve_samples,
@@ -70,7 +71,7 @@ BATCH_KEYS = {
     "edgepos": ("edgepos", "surfpnt", "surfpos", "surf_mask"),
     "edgez": ("edgepnt", "edgepos", "edge_mask", "surfpnt", "surfpos", "vertpos"),
 }
-SMALL = dict(width=32, num_heads=2, ffn_width=64, num_layers=1)
+SMALL = ARCHS["small"]["denoiser"]
 # what is not ported yet, and the ROADMAP item it waits for
 NOT_PORTED = "is not ported yet (ROADMAP queue 1, item 4: multi-GPU)"
 CACHE_NEEDS_NO_AUG = ("--cache_latents requires --data_aug off: rotation aug changes "

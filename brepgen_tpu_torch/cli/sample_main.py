@@ -10,7 +10,10 @@ when none are given, and runs the cascade batch by batch on the card. The
 mode's preset (``eval_config_tpu.yaml``'s values) sets the face and edge
 slots, thresholds, batch size and class label; ``--config`` overrides them
 from a file of that form, and ``--compact`` runs the edge stages on the kept
-faces only. Each sample is
+faces only. On the card each stage's denoiser call replays a CUDA graph
+(``sampling/aot.py``), captured at its first call; ``--aot_cache DIR``
+writes the graphs' manifest. ``--small`` is the tiny debug architecture;
+``--profile DIR`` traces the second batch. Each sample is
 post-processed on the host (topology recovery, re-decode through the VAEs,
 joint optimization on the card) in a thread pool that overlaps the next
 batch's cascade, and written as STEP + STL to ``--save_folder``. With
@@ -48,6 +51,9 @@ from brepgen_tpu_torch.nn.layers import cast_compute
 from brepgen_tpu_torch.postprocess.pipeline import make_padded_decoder, postprocess_single
 from brepgen_tpu_torch.postprocess.vertex_merge import PostprocessError
 from brepgen_tpu_torch.sampling import Cascade, CascadeConfig, GeneratorNoise
+from brepgen_tpu_torch.sampling.aot import MANIFEST, StageGraphs, stage_graphs
+from brepgen_tpu_torch.utils.profiling import TRACE_FILE, device_trace, format_summary, \
+    summarize_trace
 from brepgen_tpu_torch.weights import load_flax_params
 
 DENOISERS = ("surfpos", "surfz", "edgepos", "edgez")
@@ -65,27 +71,23 @@ def _materialise(make: Callable[[], torch.nn.Module], device: torch.device,
     return seed_weights(module, generator)
 
 
-def init_cascade(mode: str = "abc", weights_dir: Optional[str] = None, seed: int = 0,
-                 batch_size: Optional[int] = None, dtype: torch.dtype = torch.float32,
-                 device: str = "cuda", step_overrides: Optional[Dict] = None,
-                 config: Optional[str] = None) -> Cascade:
-    """The cascade for ``mode`` with weights from ``weights_dir`` (npz packs,
-    at the architecture and class count they hold) or seeded from ``seed`` at
-    the production widths, on ``device``. The mode's preset, overridden by
-    the file ``config`` (``eval_config_tpu.yaml``'s form) where given, sets
-    the sizes, thresholds, class label and batch size; ``batch_size`` and
-    ``step_overrides`` override both."""
+def load_models(use_cf: bool, weights_dir: Optional[str] = None, seed: int = 0,
+                dtype: torch.dtype = torch.float32, device: str = "cuda", small: bool = False):
+    """(denoisers by stage, surface VAE, edge VAE) with weights from
+    ``weights_dir`` (npz packs, at the architecture and class count they
+    hold) or seeded from ``seed`` at the production widths (the tiny debug
+    architecture with ``small``), in ``dtype`` on ``device``."""
     dev = resolve_device(device)
-    arch = arch_of_packs(weights_dir) if weights_dir else "production"
-    config = CascadeConfig.for_mode(mode, batch_size=batch_size, config=config,
-                                    **(step_overrides or {}))
+    arch = arch_of_packs(weights_dir) if weights_dir else "small" if small else "production"
+    if small and arch != "small":
+        raise ValueError(f"--small: the packs in {weights_dir} hold the {arch} architecture")
     gen = torch.Generator(device=dev).manual_seed(seed)
     pack = (lambda name: os.path.join(weights_dir, name)) if weights_dir else (lambda name: None)
 
     def denoiser(path, stage):
         classes = classes_of_pack(path) if path else None
         kw = {"num_classes": classes} if classes else {}
-        return build_denoiser(stage, config.use_cf, arch, **kw)
+        return build_denoiser(stage, use_cf, arch, **kw)
 
     nets = {}
     for stage in DENOISERS:
@@ -98,7 +100,24 @@ def init_cascade(mode: str = "abc", weights_dir: Optional[str] = None, seed: int
     if dtype != torch.float32:
         for m in (*nets.values(), surf_vae, edge_vae):
             cast_compute(m, dtype)
-    return Cascade(nets, surf_vae, edge_vae, config)
+    return nets, surf_vae, edge_vae
+
+
+def init_cascade(mode: str = "abc", weights_dir: Optional[str] = None, seed: int = 0,
+                 batch_size: Optional[int] = None, dtype: torch.dtype = torch.float32,
+                 device: str = "cuda", step_overrides: Optional[Dict] = None,
+                 config: Optional[str] = None, small: bool = False,
+                 aot_cache: Optional[str] = None) -> Cascade:
+    """The cascade for ``mode`` on the models of ``load_models``. The mode's
+    preset, overridden by the file ``config`` (``eval_config_tpu.yaml``'s
+    form) where given, sets the sizes, thresholds, class label and batch
+    size; ``batch_size`` and ``step_overrides`` override both. On a CUDA
+    card each stage's denoiser calls replay a CUDA graph, whose manifest
+    goes to ``aot_cache``."""
+    config = CascadeConfig.for_mode(mode, batch_size=batch_size, config=config,
+                                    **(step_overrides or {}))
+    models = load_models(config.use_cf, weights_dir, seed, dtype, device, small)
+    return Cascade(*models, config, graphs=stage_graphs(resolve_device(device), aot_cache))
 
 
 def random_string(length=15):
@@ -197,13 +216,16 @@ class SampleRun:
 def sample_loop(cascade: Cascade, num_samples: int = 0, max_batches: int = 0, seed: int = 0,
                 save_folder: Optional[str] = None, stage_times: Optional[Dict] = None,
                 after_stage: Optional[Callable[[str], None]] = None, postprocess: bool = True,
-                recovery: bool = True, workers: int = 8) -> SampleRun:
+                recovery: bool = True, workers: int = 8,
+                profile_dir: Optional[str] = None) -> SampleRun:
     """Run batches until ``num_samples`` valid B-reps (0 = no limit) or
     ``max_batches`` batches (0 = no limit). Each batch's samples are
     post-processed in a pool of ``workers`` threads while the next batch
     runs, and written as STEP + STL to ``save_folder``; the raw batches go
     to ``batches.npz`` there. ``postprocess=False`` runs the cascade alone
-    and then counts raw samples against ``num_samples``."""
+    and then counts raw samples against ``num_samples``. With
+    ``profile_dir`` the second batch (the first captures or warms up) is
+    traced into ``profile_dir/trace.json`` and its summary printed."""
     if postprocess and not save_folder:
         raise ValueError("sample_loop: postprocess writes STEP/STL and needs a save_folder")
     if save_folder:
@@ -223,8 +245,14 @@ def sample_loop(cascade: Cascade, num_samples: int = 0, max_batches: int = 0, se
                 pending.remove(f)
 
         while True:
-            out = cascade(noise, stage_times=stage_times, after_stage=after_stage)
-            sample_np = {k: v.cpu().numpy() for k, v in out.items()}
+            traced = profile_dir is not None and len(run.batches) == 1
+            with device_trace(profile_dir if traced else None):
+                out = cascade(noise, stage_times=stage_times, after_stage=after_stage)
+                sample_np = {k: v.cpu().numpy() for k, v in out.items()}
+            if traced:
+                path = os.path.join(profile_dir, TRACE_FILE)
+                print(f"profile: batch 1: {format_summary(summarize_trace(path))}; trace {path}",
+                      flush=True)
             run.batches.append(sample_np)
             if postprocess:
                 # host postprocess of batch k overlaps the cascade of batch k + 1
@@ -285,6 +313,17 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="run the edge stages on a compacted face bucket after dedup (trained "
                         "models dedup heavily; cuts the quadratic attention cost ~2x at ABC "
                         "scale)")
+    p.add_argument("--small", action="store_true",
+                   help="tiny debug architecture, seeded unless --weights_dir is given (head "
+                        "width 16, which the CUDA kernels refuse: use it with --device cpu)")
+    p.add_argument("--aot_cache", default=None,
+                   help="DIR for the graphs.json manifest of the stages' CUDA graphs (on the "
+                        "card each stage's denoiser call is captured once per input signature "
+                        "and replayed; JAX's flag name, but a CUDA graph is not kept on disk). "
+                        "Needs a CUDA card")
+    p.add_argument("--profile", default=None,
+                   help="torch.profiler trace of the second batch into DIR/trace.json, with "
+                        "its device busy time, idle share and top kernels printed")
     args = p.parse_args(argv)
     if not (args.num_samples or args.max_batches):
         p.error("give --num_samples or --max_batches")
@@ -300,7 +339,7 @@ def cascade_from_args(args: argparse.Namespace) -> Cascade:
         overrides["compact"] = True
     return init_cascade(args.mode, args.weights_dir, args.seed, args.batch_size,
                         torch.bfloat16 if args.bf16 else torch.float32, args.device,
-                        overrides, args.config)
+                        overrides, args.config, args.small, args.aot_cache)
 
 
 def main(argv=None):
@@ -309,13 +348,26 @@ def main(argv=None):
     stage_times: Dict[str, float] = {}
     run = sample_loop(cascade, args.num_samples, args.max_batches, args.seed,
                       args.save_folder or f"samples_{args.mode}", stage_times,
-                      recovery=not args.strict, workers=args.workers)
+                      recovery=not args.strict, workers=args.workers,
+                      profile_dir=args.profile)
     print(run.report())
     if cascade.cfg.compact:
         print(f"edge stages of the last batch on {cascade.last_bucket} of "
               f"{cascade.cfg.faces} face slots")
+    if cascade.graphs is not None:
+        print(graphs_report(cascade.graphs))
     print("cascade seconds per stage: "
           + ", ".join(f"{k} {v:.2f}" for k, v in stage_times.items()))
+
+
+def graphs_report(graphs: StageGraphs) -> str:
+    entries = graphs.entries
+    return (f"captured {len(entries)} stage graphs in "
+            f"{sum(e['capture_seconds'] for e in entries):.2f} s: "
+            + ", ".join(f"{e['stage']} {e['shapes']['x']} ({e['kernel_nodes']} kernel nodes)"
+                        for e in entries)
+            + (f"; manifest {os.path.join(graphs.cache_dir, MANIFEST)}"
+               if graphs.cache_dir else ""))
 
 
 if __name__ == "__main__":

@@ -36,14 +36,11 @@ from brepgen_tpu_torch.data.assembly import assemble_edge_u, assemble_surf_uv
 from brepgen_tpu_torch.data.dedup import dedup_primitives
 from brepgen_tpu_torch.data.loader import flat_vae_batcher, prefetch_to_device
 from brepgen_tpu_torch.data.synthetic import make_dataset
-from brepgen_tpu_torch.nn import EdgeVAE, SurfVAE
 from brepgen_tpu_torch.train import vae_train
 from brepgen_tpu_torch.train.checkpoint import load_params, load_resume
 from brepgen_tpu_torch.train.common import TrainState, make_vae_optimizer
 from brepgen_tpu_torch.train.logging import MetricsLogger
 from brepgen_tpu_torch.train.loop import RESUME_FILE, run_training
-
-SMALL = {"surface": (8, 8, 8, 8), "edge": (8, 8, 8)}
 
 
 def get_args(argv=None):
@@ -118,10 +115,7 @@ def make_aug_fn(option: str):
 
 
 def build_model(args) -> torch.nn.Module:
-    if args.small:
-        channels = SMALL[args.option]
-        return SurfVAE(channels) if args.option == "surface" else EdgeVAE(channels)
-    return build_vae(args.option)
+    return build_vae(args.option, "small" if args.small else "production")
 
 
 def train(args) -> TrainState:

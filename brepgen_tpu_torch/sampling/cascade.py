@@ -16,8 +16,10 @@ Port of ``brepgen_tpu/sampling/cascade.py``:
 ``fast_steps`` > 0 replaces the protocol with N-step DDIM per stage (plus the
 surfPos late-increase split and its short DDPM tail). ``compact`` runs the
 edge stages on the kept faces only (face-token compaction). Each schedule is
-one Python loop. Every noise draw goes through one noise source, which the
-caller can replace (the tests hand it the JAX package's draws).
+one Python loop; with ``graphs`` each denoiser call in it replays a CUDA
+graph of its stage (``sampling/aot.py``). Every noise draw goes through one
+noise source, which the caller can replace (the tests hand it the JAX
+package's draws).
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ from brepgen_tpu_torch.diffusion import (
     slice_plan,
 )
 from brepgen_tpu_torch.nn.denoiser import broadcast_face_to_edge, flatten_face_edge
+from brepgen_tpu_torch.sampling.aot import StageGraphs
 from brepgen_tpu_torch.sampling.dedup import dedup_bboxes, dedup_edges_per_face
 
 TEXT2INT = {
@@ -207,14 +210,20 @@ class GeneratorNoise:
 
 
 class Cascade:
-    """``Cascade(nets, surf_vae, edge_vae, config)(noise)`` -> dict of tensors."""
+    """``Cascade(nets, surf_vae, edge_vae, config)(noise)`` -> dict of tensors.
+
+    With ``graphs`` (``sampling/aot.py``; the entry points give it one on a
+    CUDA card) every denoiser call replays a CUDA graph of its stage,
+    captured at its first call; without, it runs eagerly."""
 
     def __init__(self, nets: Dict[str, torch.nn.Module], surf_vae, edge_vae,
-                 config: CascadeConfig):
+                 config: CascadeConfig, graphs: Optional[StageGraphs] = None):
         self.nets = nets
         self.surf_vae = surf_vae
         self.edge_vae = edge_vae
         self.cfg = config
+        self.graphs = graphs
+        self.captured: Dict = {}  # this cascade's graphs, by (stage, signature)
         self.model_calls = dict.fromkeys(STAGES[:4], 0)
         self.last_bucket = None  # face slots of the last batch's edge stages
         cfg = config
@@ -241,7 +250,8 @@ class Cascade:
     def stage_eps(self, stage: str, noisy_of: Callable, cond_named: Dict[str, torch.Tensor],
                   tok_mask: Optional[torch.Tensor]) -> Callable:
         """eps(x, t) with the constant conditioning streams embedded once;
-        handles CFG batch doubling."""
+        handles CFG batch doubling; replays the stage's graph when the
+        cascade has ``graphs``."""
         cfg = self.cfg
         net = self.nets[stage]
         B = cfg.batch_size
@@ -258,10 +268,9 @@ class Cascade:
                 torch.full((B, 1), cfg.class_label, dtype=torch.long, device=self.device),
                 torch.zeros((B, 1), dtype=torch.long, device=self.device),
             ])
-        cond_embed = net.embed_streams(cond_named) if cond_named else None
+        consts = (net.embed_streams(cond_named) if cond_named else None, tok_mask, labels)
 
-        def eps(x, t):
-            self.model_calls[stage] += 1
+        def denoise(x, t, cond_embed, tok_mask, labels):
             noisy = noisy_of(x)
             if cfg.use_cf:
                 noisy = {k: torch.cat([v, v]) for k, v in noisy.items()}
@@ -270,6 +279,15 @@ class Cascade:
                 w = cfg.cfg_weight
                 pred = pred[:B] * (1 + w) - pred[B:] * w
             return pred
+
+        if self.graphs is None:
+            run = lambda x, t: denoise(x, t, *consts)  # noqa: E731
+        else:
+            run = self.graphs.stage(stage, denoise, consts, self.captured, net.dtype)
+
+        def eps(x, t):
+            self.model_calls[stage] += 1
+            return run(x, t)
 
         return eps
 

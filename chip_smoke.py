@@ -17,7 +17,17 @@ the sample CLI's ``--config`` (the long-set kernel), the default PNDM + DDPM
 protocol on the all160k packs with host postprocess overlapping the cascade
 (STEP + STL), one batch post-processed serially, and point clouds from the
 solids scored against reference clouds drawn from ``--seed`` through the
-Chamfer kernel; then the training CLI trains the edgez denoiser at the
+Chamfer kernel. On the card every cascade replays each stage's denoiser call
+from a CUDA graph, as the entry points do; after each of the deepcad, abc,
+all160k abc (full and compacted) and long-set runs its graphs leg runs the
+same cascade eagerly on the same noise and holds the captured run to it
+(outputs of every batch, kernel launches per batch, seconds per stage at
+each batch index). Phase rescore samples the all160k packs at their
+training size (10 x 8, B=16, bf16, captured) through ``resample_main
+--recover --dump``, replays the dump strictly, holds the captured batch 0 to
+the same batch eagerly, and scores both sets through ``metrics_main``
+against 64 held-out clouds (K4); it fails below 90% recovered or 50% strict
+validity. Then the training CLI trains the edgez denoiser at the
 production width in bf16 (K1 forward and K5 backward in every layer of every
 step), its pack is reloaded, and one f32 step through the kernels is held
 against the same step through plain attention. Phase pipeline then runs the
@@ -41,6 +51,8 @@ torch, numpy and ``brepgen_tpu_torch`` only.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import os
 import re
@@ -117,6 +129,14 @@ TRAIN_ARGS = ("--option", "edgez", "--bf16", "--max_face", "30", "--max_edge", "
 # gradient, global relative difference 2.0e-4, at B=16 on the H100)
 GRAD_BATCH = 16
 GRAD_REL = 1e-3
+# Captured stages against eager on the same noise: the same kernels in the
+# same order, so bit-equal is expected; the bar is this share of each
+# output's largest magnitude
+GRAPH_REL = 1e-6
+# Phase rescore: 4 batches of 16 (n=64), failing only below these validities,
+# about 3 sigma under BASELINE.md's 70.3% strict at n=64
+RESCORE_BATCHES = 4
+RESCORE_MIN = {"recovered": 0.90, "strict": 0.50}
 
 
 def log(msg: str) -> None:
@@ -1007,14 +1027,20 @@ def drive(torch, np, label, cascade, expected_edge_calls, batches=1, save_folder
     layers = net.encoder.num_layers
     events = []
     stage_times = {}
+    ends = []  # stage_times at the end of each batch
+
+    def after_stage(stage):
+        events.append((stage, LAUNCH_COUNTS[kernel]))
+        if stage == "decode":
+            ends.append(dict(stage_times))
+
     calls0 = sum(cascade.model_calls[s] for s in ("edgepos", "edgez"))
     with tempfile.TemporaryDirectory() as tmp:
         folder = save_folder or tmp
         reset_launch_counts()
         run = sample_loop(cascade, max_batches=batches, seed=0, save_folder=folder,
                           stage_times=stage_times, postprocess=save_folder is not None,
-                          recovery=True, workers=4,
-                          after_stage=lambda s: events.append((s, LAUNCH_COUNTS[kernel])))
+                          recovery=True, workers=4, after_stage=after_stage)
         counts = dict(LAUNCH_COUNTS)
         with np.load(os.path.join(folder, "batches.npz")) as saved:
             want = sorted(f"{k}__{b}" for b in range(batches) for k in run.batches[0])
@@ -1057,7 +1083,9 @@ def drive(torch, np, label, cascade, expected_edge_calls, batches=1, save_folder
                 dtype=str(net.dtype).split(".")[-1], batches=batches, launches=launches,
                 edge_calls=edge_calls, seconds=run.seconds, cascade_seconds=cascade_s,
                 stage_seconds=stage_times, produced=run.produced,
-                attempted=run.attempted), run
+                attempted=run.attempted,
+                batch_stage_seconds=[{k: v - prev.get(k, 0.0) for k, v in end.items()}
+                                     for prev, end in zip([{}] + ends, ends)]), run
 
 
 def phase_solids(torch, np, cascade, batch, folder):
@@ -1150,16 +1178,20 @@ def phase_eval(torch, np, stl_root, work, seed, times=3):
 
 
 def phase_abc_compact(torch, np):
-    """Mode abc on the all160k packs, batch 4, DDIM, without and with
-    face-token compaction: the same noise, so the kept faces' outputs agree."""
+    """Mode abc on the all160k packs, batch 4, f32, DDIM, without (two
+    batches) and with (one) face-token compaction: the same noise, so the
+    kept faces' outputs agree; each captured run held to its eager twin."""
     from brepgen_tpu_torch.cli.sample_main import init_cascade
 
     runs = {}
     for compact in (False, True):
         cascade = init_cascade("abc", PACKS, batch_size=4, device="cuda",
                                step_overrides={"fast_steps": ABC_STEPS, "compact": compact})
-        label = f"abc {'compact' if compact else 'full'} (all160k packs, DDIM {ABC_STEPS})"
-        path, run = drive(torch, np, label, cascade, 2 * ABC_STEPS)
+        label = (f"abc {'compact' if compact else 'full'} (all160k packs, B=4, f32, DDIM "
+                 f"{ABC_STEPS})")
+        path, run = drive(torch, np, label, cascade, 2 * ABC_STEPS, batches=1 + (not compact))
+        path["graphs_vs_eager"] = graphs_leg(torch, np, label, cascade, (path, run),
+                                             2 * ABC_STEPS)
         runs[compact] = (path, run.batches[0])
         faces = cascade.cfg.faces
         del cascade
@@ -1175,8 +1207,8 @@ def phase_abc_compact(torch, np):
             for k in ("surf_pos", "surf_z", "edge_pos", "edge_z", "edge_v", "edge_ncs")}
     if max(errs.values()) > COMPACT_TOL:
         raise AssertionError(f"abc compact: kept-face outputs differ {errs} > {COMPACT_TOL:g}")
-    edge_s = {c: p["stage_seconds"]["edgepos"] + p["stage_seconds"]["edgez"]
-              for c, p in ((False, full_path), (True, comp_path))}
+    edge_s = {c: p["batch_stage_seconds"][0]["edgepos"] + p["batch_stage_seconds"][0]["edgez"]
+              for c, p in ((False, full_path), (True, comp_path))}  # batch 0 of each
     log(f"abc compact: bucket {comp_path['edge_faces']} of {faces} face slots (kept faces per "
         f"sample {keep.sum(1).tolist()}); edge-stage seconds {edge_s[False]:.2f} full, "
         f"{edge_s[True]:.2f} compacted; kept-face max abs diff {max(errs.values()):.3e} "
@@ -1200,9 +1232,166 @@ def phase_long_set(torch, np, work):
     cfg = cascade.cfg
     if (cfg.batch_size, cfg.faces * cfg.num_edges) != (2, 8400):
         raise AssertionError(f"long set: --config gave {cfg}")
-    path, _ = drive(torch, np, f"long set (--config 70 x 60, production width, seeded, DDIM "
-                    f"{LONG_STEPS})", cascade, 2 * LONG_STEPS, kernel="packed_flash_attention")
+    label = f"long set (--config 70 x 60, production width, seeded, f32, DDIM {LONG_STEPS})"
+    path, run = drive(torch, np, label, cascade, 2 * LONG_STEPS, kernel="packed_flash_attention")
+    path["graphs_vs_eager"] = graphs_leg(torch, np, label, cascade, (path, run),
+                                         2 * LONG_STEPS, kernel="packed_flash_attention")
     return path
+
+
+def compare_batches(np, label, want, got):
+    """Max abs difference of every output over the batches of two runs;
+    masks must be equal and values within GRAPH_REL of each output's largest
+    magnitude. Returns {output: max abs difference}."""
+    errs = {}
+    for b, (w, g) in enumerate(zip(want, got)):
+        for k, v in w.items():
+            if v.dtype == bool:
+                if not np.array_equal(v, g[k]):
+                    raise AssertionError(f"{label}: batch {b} {k} differs")
+                continue
+            err = float(np.abs(g[k].astype(np.float64) - v).max())
+            errs[k] = max(errs.get(k, 0.0), err)
+            if err > GRAPH_REL * float(np.abs(v).max()):
+                raise AssertionError(f"{label}: batch {b} {k} max abs diff {err:.3e} > "
+                                     f"{GRAPH_REL:g} x {float(np.abs(v).max()):.3e}")
+    return errs
+
+
+def graphs_leg(torch, np, label, cascade, captured, expected_edge_calls,
+               kernel="packed_attention"):
+    """The captured drive ``captured`` ((path, run) of ``drive`` on
+    ``cascade``, whose stages replay CUDA graphs as on every card run)
+    against the same cascade run eagerly (the same models and config, no
+    graphs) on the same noise, batch by batch: outputs, ``kernel`` launches
+    per batch and seconds per stage at each batch index."""
+    from brepgen_tpu_torch.sampling import Cascade
+
+    c_path, c_run = captured
+    twin = Cascade(cascade.nets, cascade.surf_vae, cascade.edge_vae, cascade.cfg)
+    e_path, e_run = drive(torch, np, f"{label}, eager", twin, expected_edge_calls,
+                          batches=c_path["batches"], kernel=kernel)
+    del twin
+    errs = compare_batches(np, label, e_run.batches, c_run.batches)
+    per_batch = {m: p["launches"] // p["batches"] for m, p in (("eager", e_path),
+                                                                ("captured", c_path))}
+    if per_batch["captured"] != per_batch["eager"]:
+        raise AssertionError(f"{label}: {kernel} launches per batch {per_batch}")
+    entries = cascade.graphs.entries
+    fmt = lambda d: ", ".join(f"{k} {v:.3f}" for k, v in d.items())  # noqa: E731
+    log(f"graphs {label}: captured against eager on the same noise, {len(c_run.batches)} "
+        f"batch(es): max abs diff {max(errs.values()):.3e} (bar {GRAPH_REL:g} of each "
+        f"output's largest; by output {errs}); {kernel} launches per batch "
+        f"{per_batch['captured']} both ways, held to the graphs' kernel nodes; "
+        f"{len(entries)} graphs ("
+        + ", ".join(f"{e['stage']} x{e['shapes']['x']}: {e['kernel_nodes']} kernel nodes, "
+                    f"launches {e['launches']}, {e['capture_seconds']:.2f} s" for e in entries)
+        + "); seconds per stage, "
+        + "; ".join(f"batch {b}{' (with the captures)' if b == 0 else ''}: eager {fmt(e)}, "
+                    f"captured {fmt(c)}" for b, (e, c) in
+                    enumerate(zip(e_path["batch_stage_seconds"], c_path["batch_stage_seconds"]))))
+    return dict(label=label, max_abs_diff=errs, launches_per_batch=per_batch["captured"],
+                graphs=len(entries), eager_stage_seconds=e_path["batch_stage_seconds"],
+                captured_stage_seconds=c_path["batch_stage_seconds"])
+
+
+def quiet(fn, *args):
+    """``fn(*args)`` with its standard output kept (returned beside the
+    result): the smoke's own output keeps one JSON line of kernels."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        result = fn(*args)
+    return result, buf.getvalue()
+
+
+def phase_rescore(torch, np, work):
+    """all160k at the size its packs were trained at (10 x 8 face and edge
+    slots, B=16, the PNDM + DDPM protocol, bf16, stages captured) through
+    ``resample_main --recover --dump``, a strict ``--from_dump`` replay of
+    the same dump, and both scored by ``metrics_main`` against 64 held-out
+    clouds (seed 777, family all) through K4. Batch 0 again eagerly, held to
+    the captured one. Fails below RESCORE_MIN validity."""
+    from brepgen_tpu_torch.cli import metrics_main, resample_main
+    from brepgen_tpu_torch.cli.sample_main import load_models
+    from brepgen_tpu_torch.diffusion import make_pndm_plan
+    from brepgen_tpu_torch.kernels import LAUNCH_COUNTS, reset_launch_counts
+    from brepgen_tpu_torch.sampling import Cascade, CascadeConfig
+
+    rec, strict = os.path.join(work, "recovered"), os.path.join(work, "strict")
+    common = ["--weights_dir", PACKS, "--z_thresholds", "0.2", "--bf16"]
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    (line_rec,), out = quiet(resample_main.main, common + [
+        "--out", rec, "--sample_batches", str(RESCORE_BATCHES), "--recover", "--dump",
+        "--aot_cache", os.path.join(work, "graphs")])
+    launches = dict(LAUNCH_COUNTS)
+    t1 = time.perf_counter()
+    cfg = CascadeConfig()
+    edge_calls = cfg.pos_pndm_calls + cfg.ddpm_tail + len(make_pndm_plan(cfg.pndm_steps).t_model)
+    want = 6 * edge_calls * RESCORE_BATCHES  # the packs' 6 layers in every edge-stage call
+    if launches["packed_attention"] != want or sum(launches.values()) != want:
+        raise AssertionError(f"rescore: launches {launches}, expected {want} packed_attention "
+                             f"and nothing else")
+    sampled = next(ln for ln in out.splitlines() if ln.startswith("sampled"))
+    with open(os.path.join(work, "graphs", "graphs.json")) as f:
+        manifest = json.load(f)
+    (line_strict,), _ = quiet(resample_main.main, common + [
+        "--out", strict, "--from_dump", os.path.join(rec, "batches.npz")])
+    t2 = time.perf_counter()
+    if line_strict["valid_breps"] != line_rec["valid_strict"]:
+        raise AssertionError(f"rescore: the strict replay made {line_strict['valid_breps']} "
+                             f"solids, the recovered run {line_rec['valid_strict']} strict ones")
+
+    # the captured batch 0 against the same batch eagerly
+    dumped = resample_main.load_dump(os.path.join(rec, "batches.npz"))[0]
+    models = load_models(False, PACKS, dtype=torch.bfloat16)
+    eager_cfg = CascadeConfig(batch_size=resample_main.BATCH, num_surfaces=10, num_edges=8)
+    (eager,), _ = quiet(resample_main.generate, Cascade(*models, eager_cfg), 1,
+                        resample_main.SEED)
+    errs = compare_batches(np, "rescore batch 0, bf16", [eager], [dumped])
+    del models
+    t3 = time.perf_counter()
+
+    reset_launch_counts()
+    scores = {}
+    for name, line in (("recovered", line_rec), ("strict", line_strict)):
+        scores[name], _ = quiet(metrics_main.main, [
+            "--run", work, "--samples_dir", os.path.join(work, name, "z0.2"), "--heldout", "64"])
+        if scores[name]["n_fake_clouds"] != line["valid_breps"]:
+            raise AssertionError(f"rescore: {scores[name]['n_fake_clouds']} clouds of "
+                                 f"{line['valid_breps']} {name} solids")
+    if LAUNCH_COUNTS["chamfer"] != 6 or LAUNCH_COUNTS["packed_attention"]:
+        raise AssertionError(f"rescore metrics: launches {dict(LAUNCH_COUNTS)}, expected 6 "
+                             f"chamfer (3 repeats x 2 sets)")
+    t4 = time.perf_counter()
+    n = line_rec["attempted"]
+    if line_rec["validity"] < RESCORE_MIN["recovered"] or \
+            line_strict["validity"] < RESCORE_MIN["strict"]:
+        raise AssertionError(f"rescore: validity {line_rec['validity']} recovered, "
+                             f"{line_strict['validity']} strict, below {RESCORE_MIN}")
+    fmt = lambda m: (f"MMD-CD {m['avg-MMD-CD']:.4f}, COV-CD {m['avg-COV-CD']:.3f}, "  # noqa: E731
+                     f"JSD {m['avg-JSD']:.3f}")
+    log(f"rescore (all160k packs, 10 x 8, B=16, bf16, PNDM + DDPM, captured): {sampled}; "
+        f"{len(manifest)} graphs, captured in "
+        f"{sum(e['capture_seconds'] for e in manifest):.2f} s; K1 launches {want} = 6 layers x "
+        f"{edge_calls} edge-stage calls x {RESCORE_BATCHES} batches; batch 0 eager against "
+        f"captured: max abs diff {max(errs.values()):.3e}")
+    log(f"rescore n={n}: recovered {line_rec['valid_breps']}/{n}, strict "
+        f"{line_strict['valid_breps']}/{n}, solid {line_rec['valid_solid']}/{n}, rungs "
+        f"{line_rec['recovered']}, strict failures {line_strict['failures']}; recovered "
+        f"{fmt(scores['recovered'])}; strict {fmt(scores['strict'])}; BASELINE.md's n=64 row "
+        f"(round 4 packs): strict 45/64 = 70.3%, recovered 64/64, rungs 4/5/6 = 3/5/11, "
+        f"MMD-CD 0.0220 / 0.0219, COV-CD 0.531 / 0.422, JSD 0.187 / 0.189 (recovered / "
+        f"strict); seconds: sample + postprocess {t1 - t0:.2f} (postprocess "
+        f"{line_rec['postprocess_s']}), strict replay {t2 - t1:.2f}, eager batch {t3 - t2:.2f}, "
+        f"metrics {t4 - t3:.2f}")
+    keep = ("attempted", "valid_breps", "valid_strict", "valid_solid", "recovered",
+            "failures", "postprocess_s")
+    return dict(path="rescore (resample_main, all160k, 10 x 8, B=16, bf16, captured)",
+                launches=want, recovered={k: line_rec[k] for k in keep},
+                strict={k: line_strict[k] for k in keep}, metrics=scores,
+                graphs=len(manifest), max_abs_diff_eager=errs, chamfer_launches=6,
+                seconds=t4 - t0)
 
 
 KERNEL_NAMES = ("set_attention_kernel", "packed_attention_kernel",
@@ -1362,10 +1551,12 @@ def main(argv=None) -> int:
     cascade = init_cascade("deepcad", seed=0, batch_size=16, device="cuda",
                            step_overrides={"fast_steps": DEEPCAD_STEPS})
     log(f"cascade: production weights seeded in {time.perf_counter() - t:.2f} s")
-    path, _ = drive(torch, np, f"cascade (production width, seeded, DDIM {DEEPCAD_STEPS})",
-                    cascade, 2 * DEEPCAD_STEPS)
+    label = f"cascade deepcad (production width, seeded, f32, DDIM {DEEPCAD_STEPS})"
+    path, run = drive(torch, np, label, cascade, 2 * DEEPCAD_STEPS, batches=2)
+    path["graphs_vs_eager"] = graphs_leg(torch, np, label, cascade, (path, run),
+                                         2 * DEEPCAD_STEPS)
     paths["packed_attention"].append(path)
-    del cascade
+    del cascade, run
     torch.cuda.empty_cache()
     log(f"phase cascade done in {time.perf_counter() - t:.2f} s")
 
@@ -1373,10 +1564,12 @@ def main(argv=None) -> int:
     cascade = init_cascade("abc", seed=0, batch_size=16, device="cuda",
                            step_overrides={"fast_steps": ABC_STEPS})
     log(f"abc: production weights seeded in {time.perf_counter() - t:.2f} s")
-    path, _ = drive(torch, np, f"abc (production width, seeded, f32, DDIM {ABC_STEPS})",
-                    cascade, 2 * ABC_STEPS, kernel="set_attention")
+    label = f"abc (production width, seeded, f32, DDIM {ABC_STEPS})"
+    path, run = drive(torch, np, label, cascade, 2 * ABC_STEPS, kernel="set_attention")
+    path["graphs_vs_eager"] = graphs_leg(torch, np, label, cascade, (path, run), 2 * ABC_STEPS,
+                                         kernel="set_attention")
     paths["set_attention"].append(path)
-    del cascade
+    del cascade, run
     torch.cuda.empty_cache()
     log(f"phase abc done in {time.perf_counter() - t:.2f} s")
 
@@ -1430,6 +1623,13 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
 
         t = time.perf_counter()
+        os.makedirs(os.path.join(work, "rescore"))
+        rescore = phase_rescore(torch, np, os.path.join(work, "rescore"))
+        paths["packed_attention"].append(rescore)
+        torch.cuda.empty_cache()
+        log(f"phase rescore done in {time.perf_counter() - t:.2f} s")
+
+        t = time.perf_counter()
         training = phase_train(torch, np, os.path.join(work, "train"))
         log(f"phase train done in {time.perf_counter() - t:.2f} s")
         torch.cuda.empty_cache()
@@ -1469,7 +1669,10 @@ def main(argv=None) -> int:
         kernel_entry("chamfer", csrc + "chamfer.cu", "brepgen_tpu/kernels/chamfer.py:47",
                      evaluation["launches"], chamfer_shapes,
                      [dict(path="eval (STL -> clouds -> JSD/MMD/COV)", **evaluation),
-                      dict(path="solids (protocol batch 0, serial)", **solids)],
+                      dict(path="solids (protocol batch 0, serial)", **solids),
+                      dict(path="rescore metrics (metrics_main, recovered and strict, "
+                                "64 held-out clouds)", launches=rescore["chamfer_launches"],
+                           metrics=rescore["metrics"])],
                      yardstick_ms=chamfer_shapes[0]["yardstick_ms"]),
         kernel_entry("packed_attention_backward", csrc + "packed_attention_bwd.cu",
                      "brepgen_tpu/kernels/attention.py:377", training["launches"],

@@ -3,7 +3,9 @@ per-head set attention, K4 Chamfer matrix, K5 the packed attention's
 backward) against their plain versions, on the card. The tile-edge cases
 (``TILE_EDGES``) run every tensor-core kernel at ragged S for both head
 widths and input types: K1/K2 in bf16 on wgmma with TMA, with a swizzle of
-its own per head width.
+its own per head width. The ``stage_graphs`` tests hold cascades whose
+denoiser calls replay CUDA graphs (``sampling/aot.py``) to the same cascades
+run eagerly on the same noise.
 
 Marked ``cuda``: they skip without a card. This file imports no JAX, so it
 also runs on a machine without it (``--noconftest`` skips the JAX set-up of
@@ -11,6 +13,9 @@ also runs on a machine without it (``--noconftest`` skips the JAX set-up of
 
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py
 """
+
+import json
+import os
 
 import numpy as np
 import pytest
@@ -464,3 +469,195 @@ def test_surface_vae_bf16_step_at_production_width_on_card(cuda):
     losses = [float(step(state, batch, gen)["loss"]) for _ in range(5)]
     assert np.isfinite(losses).all() and losses[-1] < losses[0], losses
     assert all(p.dtype == torch.float32 for p in model.parameters())
+
+
+def _graph_models(cuda, arch, dtype=torch.float32):
+    """Seeded denoisers at ``arch`` (edge stages through the kernels) and
+    small VAEs, on the card in ``dtype``."""
+    from brepgen_tpu_torch import nn as tnn
+    from brepgen_tpu_torch.cli.build import build_denoiser, seed_weights
+    from brepgen_tpu_torch.nn.layers import cast_compute
+
+    gen = torch.Generator().manual_seed(0)
+    nets = {s: seed_weights(build_denoiser(s, arch="demo", **arch), gen).to(cuda).eval()
+            for s in ("surfpos", "surfz", "edgepos", "edgez")}
+    vaes = [seed_weights(m, gen).to(cuda).eval()
+            for m in (tnn.SurfVAE((8, 8, 8, 8)), tnn.EdgeVAE((8, 8, 8)))]
+    for m in (*nets.values(), *vaes):
+        cast_compute(m, dtype)
+    return nets, *vaes
+
+
+def _eager_and_captured(cuda, models, cfg, batches=2, noise_of=None, between=None):
+    """Each batch through an eager cascade and a captured one on the same
+    noise (a generator seeded with the batch index, ``noise_of(batch,
+    noise)`` wrapping it); ``between()`` runs between the captured batches.
+    Returns the captured cascade, its graphs and per batch (eager outputs,
+    captured outputs, eager K1 launches, captured K1 launches)."""
+    from brepgen_tpu_torch.kernels import reset_launch_counts
+    from brepgen_tpu_torch.sampling import Cascade, GeneratorNoise
+    from brepgen_tpu_torch.sampling.aot import StageGraphs
+
+    graphs = StageGraphs(None, cuda)
+    eager, captured = Cascade(*models, cfg), Cascade(*models, cfg, graphs=graphs)
+    runs = []
+    for batch in range(batches):
+        row = []
+        for c in (eager, captured):
+            noise = GeneratorNoise(torch.Generator(device=cuda).manual_seed(batch))
+            if noise_of is not None:
+                noise = noise_of(batch, noise)
+            reset_launch_counts()
+            row.append(c(noise))
+            torch.cuda.synchronize()
+            row.append(LAUNCH_COUNTS["packed_attention"])
+        runs.append((row[0], row[2], row[1], row[3]))
+        if between is not None:
+            between()
+    return captured, graphs, runs
+
+
+def _assert_same(eager, captured, rel):
+    """Captured outputs equal to eager: masks exactly, values within ``rel``
+    of each output's largest magnitude (0: bit-equal)."""
+    for k, want in eager.items():
+        got = captured[k]
+        assert got.shape == want.shape and got.dtype == want.dtype, k
+        if want.dtype == torch.bool:
+            assert torch.equal(got, want), k
+        else:
+            err = (got.float() - want.float()).abs().max().item()
+            assert err <= rel * want.float().abs().max().item(), (k, err)
+
+
+@pytest.mark.cuda
+def test_stage_graphs_match_eager_on_card(cuda):
+    # f32 through K1 (width 64, 2 heads: D=32), the PNDM + DDPM protocol cut
+    # short; the same kernels in the same order, so bit-equal is expected and
+    # 1e-6 of each output's largest value is the bar
+    from brepgen_tpu_torch.sampling import CascadeConfig
+
+    cfg = CascadeConfig(batch_size=2, num_surfaces=6, num_edges=5, pndm_steps=20,
+                        pos_pndm_calls=16, ddpm_tail=10)
+    models = _graph_models(cuda, dict(width=64, num_heads=2, ffn_width=128, num_layers=2))
+    captured, graphs, runs = _eager_and_captured(cuda, models, cfg)
+    for eager_out, captured_out, eager_k1, captured_k1 in runs:
+        _assert_same(eager_out, captured_out, 1e-6)
+        assert captured_k1 == eager_k1 > 0
+    assert [e["stage"] for e in graphs.entries] == ["surfpos", "surfpos", "surfz", "edgepos",
+                                                    "edgez"]
+    assert all(e["kernel_nodes"] > 0 for e in graphs.entries)
+
+
+@pytest.mark.cuda
+def test_stage_graphs_capture_a_new_bucket_on_card(cuda):
+    # compaction: batch 1's surfpos draws are zeros, so its face slots are
+    # equal and dedup keeps one; the edge stages run on another bucket, a new
+    # signature and a second pair of edge graphs, both equal to eager
+    from brepgen_tpu_torch.sampling import CascadeConfig
+
+    def zero_surfpos(batch, noise):
+        if batch == 0:
+            return noise
+        return lambda site, shape, step=None: (
+            torch.zeros(shape, device=cuda) if site.startswith("surfpos")
+            else noise(site, shape, step))
+
+    cfg = CascadeConfig(batch_size=2, num_surfaces=6, num_edges=5, fast_steps=6,
+                        compact=True, compact_granularity=4)
+    models = _graph_models(cuda, dict(width=64, num_heads=2, ffn_width=128, num_layers=2))
+    captured, graphs, runs = _eager_and_captured(cuda, models, cfg, noise_of=zero_surfpos)
+    for eager_out, captured_out, eager_k1, captured_k1 in runs:
+        _assert_same(eager_out, captured_out, 1e-6)
+        assert captured_k1 == eager_k1 > 0
+    edge = [tuple(e["shapes"]["x"]) for e in graphs.entries if e["stage"] == "edgez"]
+    assert len(edge) == 2 and edge[0] != edge[1], edge
+    assert captured.last_bucket == 4
+
+
+@pytest.mark.cuda
+def test_stage_graphs_bf16_wgmma_replay_after_other_allocations_on_card(cuda):
+    # bf16 edge stages run K1 on wgmma with TMA, whose tensor map (qkv's
+    # address) is encoded at capture and frozen in the graph; between the
+    # batches unrelated tensors are allocated and freed, so a replay reading
+    # anything but the graph's own pool would differ from eager
+    from brepgen_tpu_torch.sampling import CascadeConfig
+
+    held = []
+
+    def churn():
+        for n in (1 << 20, 3 << 20, 1 << 24):
+            held.append(torch.full((n,), float("nan"), device=cuda))
+        del held[::2]
+
+    cfg = CascadeConfig(batch_size=4, num_surfaces=10, num_edges=8, fast_steps=8)
+    models = _graph_models(cuda, dict(width=256, num_heads=8, ffn_width=512, num_layers=2),
+                           torch.bfloat16)
+    _, _, runs = _eager_and_captured(cuda, models, cfg, batches=3, between=churn)
+    for eager_out, captured_out, eager_k1, captured_k1 in runs:
+        _assert_same(eager_out, captured_out, 0.0)
+        assert captured_k1 == eager_k1 > 0
+
+
+@pytest.mark.cuda
+def test_new_bucket_captured_beside_postprocess_threads_on_card(cuda, tmp_path, monkeypatch):
+    # the sample CLI's path with --compact on the all160k packs: batch 1's
+    # surfpos draws are zeros, so dedup keeps one face a sample and its edge
+    # stages need another bucket, captured while the thread pool
+    # post-processes batch 0 (re-decode and joint optimisation on the card);
+    # batch 2 replays batch 0's graphs. Held to the same cascade run eagerly
+    # on the same noise, postprocess on as well
+    import threading
+
+    from brepgen_tpu_torch.cli import sample_main
+    from brepgen_tpu_torch.sampling import Cascade, GeneratorNoise, aot
+
+    class ZeroBatch1(GeneratorNoise):
+        batch = -1
+
+        def __call__(self, site, shape, step=None):
+            self.batch += site == "surfpos"
+            if self.batch == 1 and site.startswith("surfpos"):
+                return torch.zeros(tuple(shape), device=self.generator.device)
+            return super().__call__(site, shape, step)
+
+    busy, lock, captures = [0], threading.Lock(), []
+    real_process, real_capture = sample_main.process_one, aot.StageGraphs._capture
+
+    def process_one(*args, **kw):
+        with lock:
+            busy[0] += 1
+        try:
+            return real_process(*args, **kw)
+        finally:
+            with lock:
+                busy[0] -= 1
+
+    def capture(self, stage, *args, **kw):
+        captures.append((stage, busy[0]))
+        return real_capture(self, stage, *args, **kw)
+
+    monkeypatch.setattr(sample_main, "process_one", process_one)
+    monkeypatch.setattr(aot.StageGraphs, "_capture", capture)
+    monkeypatch.setattr(sample_main, "GeneratorNoise", ZeroBatch1)
+    captured = sample_main.init_cascade(
+        "abc", os.path.join(os.path.dirname(__file__), "..", "artifacts", "demo_round5", "all160k",
+                            "ckpt_packed"), batch_size=8, device="cuda",
+        step_overrides=dict(fast_steps=10, compact=True, compact_granularity=4),
+        aot_cache=str(tmp_path / "graphs"))
+    eager = Cascade(captured.nets, captured.surf_vae, captured.edge_vae, captured.cfg)
+    # two threads for eight samples: batch 0's postprocess outlasts batch 1's
+    # surf stages
+    runs = {name: sample_main.sample_loop(c, max_batches=3, seed=0, workers=2,
+                                          save_folder=str(tmp_path / name))
+            for name, c in (("eager", eager), ("captured", captured))}
+    for b, (want, got) in enumerate(zip(runs["eager"].batches, runs["captured"].batches)):
+        for k, v in want.items():
+            assert np.array_equal(got[k], v), (b, k)
+    assert runs["eager"].attempted == runs["captured"].attempted == 24
+    edge = [tuple(e["shapes"]["x"]) for e in captured.graphs.entries if e["stage"] == "edgez"]
+    assert edge[0][1] > edge[1][1] == 4 * 40, edge  # batch 1: 4 face slots
+    # batch 1's edge stages were captured while samples were in postprocess
+    assert [s for s, n in captures if n][:1] == ["edgepos"], captures
+    with open(tmp_path / "graphs" / aot.MANIFEST) as f:
+        assert len(json.load(f)) == len(captured.graphs.entries)
