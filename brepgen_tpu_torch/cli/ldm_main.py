@@ -20,7 +20,7 @@ batch producer's thread, and hands the steps the latents (refused with
 steps 10-29 (or to the end of their epoch) to ``DIR/trace.json`` and prints
 the device idle share; ``--remat dots`` keeps the outputs of the dense
 products and recomputes the rest of each layer in the backward. ``--dp``
-waits for multi-GPU (ROADMAP queue 1, item 4) and exits with a message.
+waits for multi-GPU (the JAX package's ``parallel/``) and exits with a message.
 """
 
 from __future__ import annotations
@@ -72,8 +72,9 @@ BATCH_KEYS = {
     "edgez": ("edgepnt", "edgepos", "edge_mask", "surfpnt", "surfpos", "vertpos"),
 }
 SMALL = ARCHS["small"]["denoiser"]
-# what is not ported yet, and the ROADMAP item it waits for
-NOT_PORTED = "is not ported yet (ROADMAP queue 1, item 4: multi-GPU)"
+# what is not ported yet, and what it waits for
+NOT_PORTED = ("is not ported yet (multi-GPU: the port has no counterpart of the JAX "
+              "package's parallel/)")
 CACHE_NEEDS_NO_AUG = ("--cache_latents requires --data_aug off: rotation aug changes "
                       "surf_ncs/edge_ncs every epoch (dataset.py:322,499)")
 

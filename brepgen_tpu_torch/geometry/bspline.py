@@ -8,9 +8,9 @@ a (tiny, well-conditioned) linear least-squares per coordinate. Output is
 (knots, control points) in standard B-spline form -- exactly what the STEP
 writer needs for B_SPLINE_{CURVE,SURFACE}_WITH_KNOTS entities.
 
-The port's own copy of the fitting half of ``brepgen_tpu/geometry/bspline.py``
-(the STEP writer's needs; evaluation and the rational types serve the JAX
-package's STEP reader).
+The port's own copy of ``brepgen_tpu/geometry/bspline.py``: the fitting
+half serves the STEP writer, the evaluation half and the rational types the
+STEP reader and the extraction (``geometry/native_extract.py``).
 """
 
 from __future__ import annotations
@@ -99,6 +99,54 @@ def fit_bspline_surface(
     Av_pinv = np.linalg.pinv(Av)  # [nv, Nv]
     ctrl = np.einsum("ui,vj,ijd->uvd", Au_pinv, Av_pinv, grid)
     return BsplineSurface(degree, degree, ku, kv, ctrl)
+
+
+def eval_bspline_curve(curve: BsplineCurve, t: np.ndarray) -> np.ndarray:
+    B = _bspline_basis(t, curve.knots, curve.degree, len(curve.control))
+    return B @ curve.control
+
+
+def eval_bspline_surface(surf: BsplineSurface, u: np.ndarray, v: np.ndarray) -> np.ndarray:
+    """Evaluate on the tensor grid u x v -> [len(u), len(v), 3]."""
+    Bu = _bspline_basis(u, surf.knots_u, surf.degree_u, surf.control.shape[0])
+    Bv = _bspline_basis(v, surf.knots_v, surf.degree_v, surf.control.shape[1])
+    return np.einsum("iu,jv,uvd->ijd", Bu, Bv, surf.control)
+
+
+class NurbsCurve(NamedTuple):
+    """Rational B-spline curve (homogeneous weights); exact for conics,
+    which external STEP files often carry as RATIONAL_B_SPLINE_CURVE
+    complex entities instead of CIRCLE/ELLIPSE."""
+
+    degree: int
+    knots: np.ndarray
+    control: np.ndarray     # [n_ctrl, 3]
+    weights: np.ndarray     # [n_ctrl]
+
+
+class NurbsSurface(NamedTuple):
+    degree_u: int
+    degree_v: int
+    knots_u: np.ndarray
+    knots_v: np.ndarray
+    control: np.ndarray     # [n_u, n_v, 3]
+    weights: np.ndarray     # [n_u, n_v]
+
+
+def eval_nurbs_curve(curve: NurbsCurve, t: np.ndarray) -> np.ndarray:
+    B = _bspline_basis(t, curve.knots, curve.degree, len(curve.control))
+    num = B @ (curve.weights[:, None] * curve.control)
+    den = B @ curve.weights
+    return num / den[:, None]
+
+
+def eval_nurbs_surface(surf: NurbsSurface, u: np.ndarray, v: np.ndarray) -> np.ndarray:
+    """Evaluate on the tensor grid u x v -> [len(u), len(v), 3]."""
+    Bu = _bspline_basis(u, surf.knots_u, surf.degree_u, surf.control.shape[0])
+    Bv = _bspline_basis(v, surf.knots_v, surf.degree_v, surf.control.shape[1])
+    num = np.einsum("iu,jv,uvd->ijd", Bu, Bv, surf.weights[..., None] * surf.control)
+    den = np.einsum("iu,jv,uv->ij", Bu, Bv, surf.weights)
+    return num / den[..., None]
 
 
 def knots_with_multiplicity(knots: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:

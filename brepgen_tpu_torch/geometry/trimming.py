@@ -12,10 +12,11 @@ The reference trims faces with OpenCASCADE wires + ShapeFix
     inner loops fall out automatically. Falls back to the full grid if
     the mapped polygon is degenerate.
 
-The port's own copy of ``brepgen_tpu/geometry/trimming.py``, with the numpy
-versions of the three cell helpers that ``geometry/native_bindings.py``
-falls back to when its native host library is absent. The port has no
-native library yet; its results match the numpy path of the JAX package.
+The port's own copy of ``brepgen_tpu/geometry/trimming.py``. The three
+cell helpers run in the port's native host library
+(``geometry/native_bindings.py``, built with g++ at first use), as they do in
+the JAX package where its library is built; the results match that path of
+the JAX package exactly.
 """
 
 from __future__ import annotations
@@ -25,44 +26,11 @@ from typing import List, Sequence, Tuple
 import numpy as np
 
 from brepgen_tpu_torch.data.augment import get_bbox_norm
-
-
-def cells_inside_polygons(polys: List[np.ndarray], nu: int, nv: int) -> np.ndarray:
-    """Even-odd containment of every cell center -> [nu-1, nv-1] bool."""
-    ci, cj = np.meshgrid(np.arange(nu - 1) + 0.5, np.arange(nv - 1) + 0.5, indexing="ij")
-    inside = np.zeros(ci.shape, bool)
-    for poly in polys:
-        x, y = poly[:, 0], poly[:, 1]
-        x2, y2 = np.roll(x, -1), np.roll(y, -1)
-        for k in range(len(poly)):
-            cond = ((y[k] > cj) != (y2[k] > cj)) & (
-                ci < (x2[k] - x[k]) * (cj - y[k]) / (y2[k] - y[k] + 1e-30) + x[k]
-            )
-            inside ^= cond
-    return inside
-
-
-def nearest_grid_index(points: np.ndarray, grid: np.ndarray) -> np.ndarray:
-    """(i, j) of the grid sample nearest each point -> [N, 2] float."""
-    nu, nv, _ = grid.shape
-    flat = grid.reshape(-1, 3)
-    d2 = (
-        np.sum(points**2, -1)[:, None]
-        + np.sum(flat**2, -1)[None, :]
-        - 2.0 * points @ flat.T
-    )
-    idx = np.argmin(d2, axis=1)
-    return np.stack([idx // nv, idx % nv], -1).astype(float)
-
-
-def tessellate_cells(grid: np.ndarray, inside: np.ndarray) -> np.ndarray:
-    """Two triangles per inside cell -> [T, 3, 3]."""
-    tris = []
-    for i, j in zip(*np.where(inside)):
-        a, b, c, d = grid[i, j], grid[i + 1, j], grid[i + 1, j + 1], grid[i, j + 1]
-        tris.append([a, b, c])
-        tris.append([a, c, d])
-    return np.asarray(tris).reshape(-1, 3, 3)
+from brepgen_tpu_torch.geometry.native_bindings import (
+    cells_inside_polygons,
+    nearest_grid_index,
+    tessellate_cells,
+)
 
 
 def order_loops(

@@ -39,12 +39,19 @@ with ``--cache_latents`` and ``--profile`` on those solids and packs (K1 and
 K5 launch counts, the cache's hits and misses, the trace's device idle
 share), the same run encoding in the step, the cache's latents from a
 producer thread against the step's encode, and one f32 step with ``--remat
-dots`` against ``--remat on`` (gradients, K1 launches, peak memory). It
-checks shapes, finiteness, masks, solids, agreement of the compacted and
-full runs, the gradients, and kernel launch counts. Each
-phase prints one line with its seconds. The last lines are one JSON object
-of kernel measurements and the result line. Any failure raises and exits
-non-zero; without a CUDA card it exits 1 and prints no result. It imports
+dots`` against ``--remat on`` (gradients, K1 launches, peak memory). Phase
+step ingests STEP files on the host: every STEP file of phases solids and
+overlap passes the port's conformance validator (and ``validate_solid``
+where it holds a solid), 240 of the pipeline's solids are written as STEP,
+extracted back by ``shard_driver`` in four ``process_main`` subprocesses
+(one pkl each, within 5e-2 of the source grids, no failed shard), split,
+deduplicated and trained on by ``ldm_main`` edgez in bf16 with the
+pipeline's VAE packs (K1 and K5 launch counts). The native host library
+(trimming) is built with g++ beside the kernels. It checks shapes,
+finiteness, masks, solids, agreement of the compacted and full runs, the
+gradients, and kernel launch counts. Each phase prints one line with its
+seconds. The last lines are one JSON object of kernel measurements and the
+result line. Any failure raises and exits non-zero; without a CUDA card it exits 1 and prints no result. It imports
 torch, numpy and ``brepgen_tpu_torch`` only.
 """
 
@@ -688,6 +695,7 @@ def phase_pipeline(torch, np, work):
             del model, state, step, batch
             torch.cuda.empty_cache()
         out["vae"] = vae_rows
+        out.update(packs=packs, parsed=os.path.join(work, "parsed"))
 
         # the cached, profiled edgez run and the same run encoding in the step
         vae_args = ("--surfvae", packs["surface"], "--edgevae", packs["edge"])
@@ -866,6 +874,178 @@ def phase_pipeline(torch, np, work):
             f" GiB on; second step {dots['seconds']:.3f} s / {on['seconds']:.3f} s")
     finally:
         os.chdir(cwd)
+    return out
+
+
+# Phase step: STEP ingestion on the card's host, then training on what it
+# read. A tenth of the pipeline's 2300 synthetic solids go out as STEP files
+# through the port's writer and come back through the shard driver, in 4
+# shards of process_main subprocesses, within STEP_TOL of their source grids
+# (the JAX package's bar, tests/test_geometry.py:206); 3 epochs of edgez on
+# them (192 train solids: one step of B=128 an epoch, drop_last)
+STEP_SOLIDS = 240
+STEP_SHARDS = 4
+STEP_EPOCHS = 3
+STEP_TOL = 5e-2
+
+
+def phase_step(torch, np, solids_dir, solid_steps, work, pipeline):
+    """(a) every STEP file phase solids and the overlap wrote passes the port's
+    conformance validator, and each one of a solid ``validate_solid``; (b)
+    ``STEP_SOLIDS`` of the pipeline's solids written as ``<id:08d>.step``
+    through ``construct_brep(...).write_step``; (c) the tree extracted by
+    ``shard_driver.process_shards_main`` (no retries, so no fault hides), one
+    pkl per file within ``STEP_TOL`` of its source; (d) a split of those pkls,
+    ``eval_main dedup`` of its surfaces and edges, and ``ldm_main`` edgez in
+    bf16 at production width on them with the pipeline's VAE packs, K1 and K5
+    launches held to the steps."""
+    import pickle
+
+    from brepgen_tpu_torch.cli import eval_main, ldm_main, process_main, shard_driver
+    from brepgen_tpu_torch.cli.build import uid_to_path
+    from brepgen_tpu_torch.geometry import construct_brep, load_brep, validate_solid
+    from brepgen_tpu_torch.geometry.step_conformance import validate_step_file
+    from brepgen_tpu_torch.kernels import LAUNCH_COUNTS, reset_launch_counts
+
+    out = {}
+    t_phase = t = time.perf_counter()
+    files = sorted(os.path.join(d, f) for d, _, names in os.walk(solids_dir)
+                   for f in names if f.endswith(".step"))
+    checked = set()
+    for path in files:
+        errs = validate_step_file(path)
+        if errs:
+            raise AssertionError(f"step: {path} has {len(errs)} conformance violations: "
+                                 f"{errs[:5]}")
+        with open(path) as f:
+            if "MANIFOLD_SOLID_BREP" not in f.read():
+                continue
+        report = validate_solid(load_brep(path))
+        if not report["ok"]:
+            raise AssertionError(f"step: validate_solid({path}): {report}")
+        checked.add(path)
+    missing = sorted(set(solid_steps) - checked)
+    if missing or not checked:
+        raise AssertionError(f"step: solids of phase solids not checked as solids: {missing}; "
+                             f"{len(checked)} solid files among {len(files)}")
+    seconds = time.perf_counter() - t
+    out["validated"] = dict(files=len(files), solids=len(checked), seconds=seconds,
+                            seconds_per_file=seconds / len(files))
+    log(f"step: (a) {len(files)} STEP files of phases solids and overlap conformant, "
+        f"{len(checked)} of them solids with validate_solid ok; {seconds:.2f} s, "
+        f"{seconds / len(files):.4f} s per file on the host")
+
+    t = time.perf_counter()
+    parsed = pipeline["parsed"]
+    uids = sorted(os.listdir(os.path.join(parsed, "0000")))[:STEP_SOLIDS]
+    tree = os.path.join(work, "steps")
+    os.makedirs(tree)
+    sources = {}
+    for uid in uids:
+        with open(uid_to_path(parsed, uid), "rb") as f:
+            data = pickle.load(f)
+        solid = construct_brep(data["surf_wcs"], data["edge_wcs"], data["faceEdge_adj"],
+                               data["edgeCorner_adj"])
+        if not solid.topology_ok():
+            raise AssertionError(f"step: source solid {uid} does not close into a shell")
+        solid.write_step(os.path.join(tree, uid.replace(".pkl", ".step")))
+        sources[uid] = data["surf_wcs"]
+    seconds = time.perf_counter() - t
+    out["written"] = dict(files=len(uids), seconds=seconds, seconds_per_solid=seconds / len(uids))
+    log(f"step: (b) {len(uids)} of the pipeline's solids written as STEP through "
+        f"construct_brep(...).write_step in {seconds:.2f} s, {seconds / len(uids):.4f} s per "
+        f"solid on the host")
+
+    # (c) each shard a `python -m brepgen_tpu_torch.cli.process_main`
+    # subprocess, which imports the package from this checkout
+    t = time.perf_counter()
+    extracted = os.path.join(work, "extracted")
+    env_path = os.environ.get("PYTHONPATH")
+    os.environ["PYTHONPATH"] = os.pathsep.join(p for p in (ROOT, env_path) if p)
+    try:
+        manifest = shard_driver.process_shards_main([
+            "--input", tree, "--output", extracted, "--option", "furniture", "--shard_size",
+            str(-(-len(uids) // STEP_SHARDS)), "--timeout", "300", "--retries", "0"])
+    finally:
+        if env_path is None:
+            del os.environ["PYTHONPATH"]
+        else:
+            os.environ["PYTHONPATH"] = env_path
+    seconds = time.perf_counter() - t
+    pkls = sorted(f for _, _, names in os.walk(extracted) for f in names if f.endswith(".pkl"))
+    if (manifest["done"] != list(range(STEP_SHARDS)) or manifest["failed"]
+            or pkls != sorted(uids)):
+        raise AssertionError(f"step: shard manifest {manifest}; {len(pkls)} pkls for "
+                             f"{len(uids)} STEP files")
+    worst = 0.0
+    for uid in pkls:
+        with open(uid_to_path(extracted, uid), "rb") as f:
+            got = pickle.load(f)["surf_wcs"]
+        if got.shape != sources[uid].shape:
+            raise AssertionError(f"step: {uid}: surf_wcs {got.shape} from STEP, "
+                                 f"{sources[uid].shape} in the source")
+        worst = max(worst, float(np.abs(got - sources[uid]).max()))
+    if not worst < STEP_TOL:
+        raise AssertionError(f"step: extracted surf_wcs off its source by {worst:.3e}")
+    out["extracted"] = dict(files=len(pkls), shards=STEP_SHARDS, seconds=seconds,
+                            seconds_per_solid=seconds / len(pkls), surf_wcs_max_abs_diff=worst)
+    log(f"step: (c) shard_driver over {len(uids)} STEP files in {STEP_SHARDS} shards "
+        f"(process_main subprocesses): done {manifest['done']}, failed {manifest['failed']}, "
+        f"{len(pkls)} pkls in {seconds:.2f} s, {seconds / len(pkls):.4f} s per extracted solid "
+        f"on the host; surf_wcs within {worst:.3e} of the source grids (bar {STEP_TOL:g})")
+
+    # (d) train on the extracted pkls, from a directory of its own
+    t = time.perf_counter()
+    cwd = os.getcwd()
+    os.makedirs(os.path.join(work, "train"))
+    os.chdir(os.path.join(work, "train"))
+    try:
+        split_path = "deepcad_data_split_6bit.pkl"
+        split = process_main.split_uids(pkls, 0)
+        with open(split_path, "wb") as f:
+            pickle.dump(split, f)
+        counts = {}
+        for kind, extra in (("surface", []), ("edge", ["--edge"])):
+            with open(eval_main.dedup_main(["--data", extracted, "--list", split_path, *extra]),
+                      "rb") as f:
+                counts[kind] = len(pickle.load(f))
+        e = str(STEP_EPOCHS)
+        args = ldm_main.get_args([
+            *LDM_ARGS, "--surfvae", pipeline["packs"]["surface"], "--edgevae",
+            pipeline["packs"]["edge"], "--data", extracted, "--list", split_path,
+            "--train_nepoch", e, "--test_nepoch", e, "--save_nepoch", e, "--dir_name", "ldm",
+            "--env", "step"])
+        reset_launch_counts()
+        run = ldm_main.train(args)
+        torch.cuda.synchronize()
+        launches = dict(LAUNCH_COUNTS)
+        train_seconds = time.perf_counter() - t
+        ms, losses, _ = epoch_ms_per_step(run.metrics_path)
+    finally:
+        os.chdir(cwd)
+    steps, val_calls = run.state.step, run.val_calls
+    layers = run.state.module.encoder.num_layers
+    want = dict(packed_attention_backward=layers * steps,
+                packed_attention=2 * layers * steps + layers * val_calls)
+    others = {k: v for k, v in launches.items() if k not in want and v}
+    if (steps < STEP_EPOCHS or not val_calls or others
+            or any(launches[k] != v for k, v in want.items())
+            or not losses or not np.isfinite(losses).all()):
+        raise AssertionError(f"step: ldm_main on the extracted pkls: {steps} steps, {val_calls} "
+                             f"validation calls, launches {launches}, expected {want}, losses "
+                             f"{losses}")
+    out["train"] = dict(split={k: len(v) for k, v in split.items()}, dedup=counts, steps=steps,
+                        val_calls=val_calls, seconds=train_seconds, ms_per_step=ms,
+                        launches=launches["packed_attention_backward"],
+                        k1_launches=launches["packed_attention"], losses=losses)
+    log(f"step: (d) split {out['train']['split']}, dedup_main {counts['surface']} surfaces, "
+        f"{counts['edge']} edges; ldm_main {' '.join(LDM_ARGS)} on the extracted pkls: {steps} "
+        f"steps in {train_seconds:.2f} s (whole run); K5 launches "
+        f"{launches['packed_attention_backward']} = {layers} x {steps}, K1 "
+        f"{launches['packed_attention']} = 2 x {layers} x {steps} + {layers} x {val_calls} "
+        f"validation calls; losses " + ", ".join(f"{x:.5f}" for x in losses))
+    out["seconds"] = time.perf_counter() - t_phase
+    del run
     return out
 
 
@@ -1090,7 +1270,8 @@ def drive(torch, np, label, cascade, expected_edge_calls, batches=1, save_folder
 
 def phase_solids(torch, np, cascade, batch, folder):
     """Batch 0 of the protocol run through ``process_one`` with recovery, one
-    sample after another (no overlap): STEP + STL into ``folder``."""
+    sample after another (no overlap): STEP + STL into ``folder``; the STEP
+    files of the solids among them in ``solid_steps``."""
     from brepgen_tpu_torch.cli.sample_main import SampleRun, host_decoders, process_one
     from brepgen_tpu_torch.kernels import LAUNCH_COUNTS, reset_launch_counts
 
@@ -1099,7 +1280,7 @@ def phase_solids(torch, np, cascade, batch, folder):
     reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    per_sample = []
+    per_sample, solid_steps = [], []
     for b in range(cascade.cfg.batch_size):
         t = time.perf_counter()
         name, note = process_one(batch, b, surf_decode, edge_decode, cascade.cfg.z_threshold,
@@ -1107,6 +1288,8 @@ def phase_solids(torch, np, cascade, batch, folder):
         per_sample.append(time.perf_counter() - t)
         run.add(name, note)
         run.attempted += 1
+        if name is not None and "nonsolid" not in (note or ""):
+            solid_steps.append(os.path.join(folder, name + ".step"))
         if name is not None:
             for suffix in (".step", ".stl"):
                 path = os.path.join(folder, name + suffix)
@@ -1122,7 +1305,8 @@ def phase_solids(torch, np, cascade, batch, folder):
         + run.report().replace("\n", "; ")
         + "; seconds per sample " + ", ".join(f"{t:.2f}" for t in per_sample))
     return dict(attempted=run.attempted, produced=run.produced, strict=run.strict,
-                solid=run.solid, failures=run.failures, rungs=run.rungs, seconds=run.seconds)
+                solid=run.solid, failures=run.failures, rungs=run.rungs, seconds=run.seconds,
+                solid_steps=solid_steps)
 
 
 def reference_clouds(np, folder, seed, count=64, n=2000):
@@ -1508,6 +1692,7 @@ def main(argv=None) -> int:
 
     from brepgen_tpu_torch.cli.sample_main import init_cascade
     from brepgen_tpu_torch.diffusion import make_pndm_plan
+    from brepgen_tpu_torch.geometry import native_bindings
     from brepgen_tpu_torch.kernels import _build
 
     smi = subprocess.run(
@@ -1517,12 +1702,16 @@ def main(argv=None) -> int:
     print(smi, flush=True)
     t = time.perf_counter()
     kernels = ("packed_attention", "set_attention", "chamfer", "packed_attention_bwd")
-    with ThreadPoolExecutor(len(kernels)) as pool:  # one nvcc per source, together
+    # one nvcc per source and g++ for the native host library, all together
+    with ThreadPoolExecutor(len(kernels) + 1) as pool:
+        host_lib = pool.submit(native_bindings.load)
         list(pool.map(_build.load, kernels))
+        host_lib = host_lib.result()
     build_s = time.perf_counter() - t
     log(f"env: python {sys.version.split()[0]}, torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, card {torch.cuda.get_device_name(0)} ({smi}), "
-        f"{torch.cuda.device_count()} visible; {', '.join(kernels)} built in {build_s:.2f} s")
+        f"{torch.cuda.device_count()} visible; {', '.join(kernels)} and the native host "
+        f"library ({os.path.relpath(host_lib._name, ROOT)}) built in {build_s:.2f} s")
     tensor_cores = build_report(_build, kernels)
 
     shapes = {k: [] for k in ATTENTION_KERNELS}
@@ -1578,7 +1767,12 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     log(f"phase abc compact done in {time.perf_counter() - t:.2f} s")
 
-    with tempfile.TemporaryDirectory() as work:
+    # phase step reads the STEP files of phases solids and overlap (in
+    # ``work``) and the solids and VAE packs of phase pipeline (in
+    # ``pipeline_work``, under build/)
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory() as work, \
+            tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as pipeline_work:
         t = time.perf_counter()
         paths["packed_flash_attention"].append(phase_long_set(torch, np, work))
         torch.cuda.empty_cache()
@@ -1598,6 +1792,7 @@ def main(argv=None) -> int:
         serial_dir = os.path.join(work, "solids", "serial")
         os.makedirs(serial_dir)
         solids = phase_solids(torch, np, cascade, run.batches[0], serial_dir)
+        solid_steps = solids.pop("solid_steps")
         log(f"phase solids done in {time.perf_counter() - t:.2f} s")
 
         # the user's path: host postprocess of batch k overlaps the cascade of
@@ -1634,15 +1829,28 @@ def main(argv=None) -> int:
         log(f"phase train done in {time.perf_counter() - t:.2f} s")
         torch.cuda.empty_cache()
 
-    t = time.perf_counter()
-    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as work:
-        pipeline = phase_pipeline(torch, np, work)
-    cached = pipeline["ldm"]["cached"]
-    pipeline_path = dict(path="pipeline (ldm_main edgez --cache_latents --profile, production "
-                              "width, bf16, B=128, S=600, on process_main's solids and the "
-                              "VAEs just trained)", **cached)
-    log(f"phase pipeline done in {time.perf_counter() - t:.2f} s")
+        t = time.perf_counter()
+        pipeline = phase_pipeline(torch, np, pipeline_work)
+        cached = pipeline["ldm"]["cached"]
+        pipeline_path = dict(path="pipeline (ldm_main edgez --cache_latents --profile, "
+                                  "production width, bf16, B=128, S=600, on process_main's "
+                                  "solids and the VAEs just trained)", **cached)
+        log(f"phase pipeline done in {time.perf_counter() - t:.2f} s")
+        torch.cuda.empty_cache()
+
+        t = time.perf_counter()
+        step = phase_step(torch, np, os.path.join(work, "solids"), solid_steps,
+                          os.path.join(pipeline_work, "step"), pipeline)
+        step_path = dict(path=f"step (ldm_main edgez, production width, bf16, B=128, S=600, on "
+                              f"{STEP_SOLIDS} solids written as STEP and extracted by "
+                              f"shard_driver, the pipeline's VAEs)", **step["train"])
+        log(f"phase step done in {time.perf_counter() - t:.2f} s: host seconds "
+            f"{step['validated']['seconds_per_file']:.4f} per validated file, "
+            f"{step['written']['seconds_per_solid']:.4f} per written solid, "
+            f"{step['extracted']['seconds_per_solid']:.4f} per extracted solid; (a) "
+            f"{step['validated']['seconds']:.2f} s, (b) {step['written']['seconds']:.2f} s, (c) "
+            f"{step['extracted']['seconds']:.2f} s, (d) {step['train']['seconds']:.2f} s")
+        torch.cuda.empty_cache()
 
     # the top-level numbers are those of the main shape (the first of each
     # kernel's shapes: production width in f32; chamfer: the n=256 eval
@@ -1653,8 +1861,9 @@ def main(argv=None) -> int:
         kernel_entry("packed_attention", csrc + "packed_attention.cu",
                      "brepgen_tpu/kernels/attention.py:150",
                      paths["packed_attention"][0]["launches"], shapes["packed_attention"],
-                     paths["packed_attention"] + [dict(pipeline_path,
-                                                       launches=cached["k1_launches"])],
+                     paths["packed_attention"] + [
+                         dict(pipeline_path, launches=cached["k1_launches"]),
+                         dict(step_path, launches=step["train"]["k1_launches"])],
                      tensor_core_instructions=tensor_cores.get("packed_attention")),
         kernel_entry("packed_flash_attention", csrc + "packed_attention.cu",
                      "brepgen_tpu/kernels/attention.py:261",
@@ -1676,7 +1885,7 @@ def main(argv=None) -> int:
                      yardstick_ms=chamfer_shapes[0]["yardstick_ms"]),
         kernel_entry("packed_attention_backward", csrc + "packed_attention_bwd.cu",
                      "brepgen_tpu/kernels/attention.py:377", training["launches"],
-                     backward_shapes, [training, pipeline_path],
+                     backward_shapes, [training, pipeline_path, step_path],
                      packed_attention_ms=backward_shapes[0]["packed_attention_ms"],
                      tensor_core_instructions=tensor_cores.get("packed_attention_bwd")),
     ]}), flush=True)

@@ -5,7 +5,9 @@ backward) against their plain versions, on the card. The tile-edge cases
 widths and input types: K1/K2 in bf16 on wgmma with TMA, with a swizzle of
 its own per head width. The ``stage_graphs`` tests hold cascades whose
 denoiser calls replay CUDA graphs (``sampling/aot.py``) to the same cascades
-run eagerly on the same noise.
+run eagerly on the same noise. ``test_step_ingestion_of_card_exports`` runs
+legs (a)-(c) of ``chip_smoke.py``'s phase step on STEP files a cascade on
+the card exports.
 
 Marked ``cuda``: they skip without a card. This file imports no JAX, so it
 also runs on a machine without it (``--noconftest`` skips the JAX set-up of
@@ -661,3 +663,55 @@ def test_new_bucket_captured_beside_postprocess_threads_on_card(cuda, tmp_path, 
     assert [s for s, n in captures if n][:1] == ["edgepos"], captures
     with open(tmp_path / "graphs" / aot.MANIFEST) as f:
         assert len(json.load(f)) == len(captured.graphs.entries)
+
+
+@pytest.mark.cuda
+def test_step_ingestion_of_card_exports(cuda, tmp_path, monkeypatch):
+    # legs (a)-(c) of chip_smoke.py's phase step at a small size: (a) the
+    # STEP files a cascade on the card exports pass the port's conformance
+    # validator, and validate_solid where they hold a solid; (b) synthetic
+    # solids written as STEP; (c) extracted back by the shard driver in
+    # process_main subprocesses, one pkl each, within 5e-2 of the source
+    import pickle
+
+    from brepgen_tpu_torch.cli import sample_main, shard_driver
+    from brepgen_tpu_torch.cli.build import uid_to_path
+    from brepgen_tpu_torch.data.synthetic import make_dataset
+    from brepgen_tpu_torch.geometry import construct_brep, load_brep, validate_solid
+    from brepgen_tpu_torch.geometry.step_conformance import validate_step_file
+
+    root = os.path.join(os.path.dirname(__file__), "..")
+    cascade = sample_main.init_cascade(
+        "deepcad", os.path.join(root, "artifacts", "demo_round5", "all160k", "ckpt_packed"),
+        batch_size=8, device="cuda")
+    run = sample_main.sample_loop(cascade, max_batches=1, save_folder=str(tmp_path / "card"),
+                                  workers=4)
+    files = sorted(str(p) for p in (tmp_path / "card").glob("*.step"))
+    assert len(files) == run.produced >= 1
+    solids = 0
+    for path in files:
+        assert validate_step_file(path) == [], path
+        if "MANIFOLD_SOLID_BREP" in open(path).read():
+            assert validate_solid(load_brep(path))["ok"], path
+            solids += 1
+    assert solids == run.solid >= 1
+
+    tree, sources = tmp_path / "steps", {}
+    tree.mkdir()
+    for i, data in enumerate(make_dataset(24, seed=0)):
+        construct_brep(data["surf_wcs"], data["edge_wcs"], data["faceEdge_adj"],
+                       data["edgeCorner_adj"]).write_step(str(tree / f"{i:08d}.step"))
+        sources[f"{i:08d}.pkl"] = data["surf_wcs"]
+    monkeypatch.setenv("PYTHONPATH", os.pathsep.join(
+        p for p in (os.path.abspath(root), os.environ.get("PYTHONPATH")) if p))
+    out = str(tmp_path / "parsed")
+    manifest = shard_driver.process_shards_main(
+        ["--input", str(tree), "--output", out, "--option", "furniture", "--shard_size", "8",
+         "--timeout", "300", "--retries", "0"])
+    assert manifest["done"] == [0, 1, 2] and manifest["failed"] == []
+    pkls = sorted(p.name for p in (tmp_path / "parsed").rglob("*.pkl"))
+    assert pkls == sorted(sources)
+    for uid in pkls:
+        with open(uid_to_path(out, uid), "rb") as f:
+            got = pickle.load(f)["surf_wcs"]
+        assert got.shape == sources[uid].shape and np.abs(got - sources[uid]).max() < 5e-2

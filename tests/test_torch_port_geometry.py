@@ -1,10 +1,11 @@
 """Port: B-rep assembly, STL and STEP export against the JAX package.
 
-The port keeps the numpy versions of the trimming cell helpers. The JAX
-package takes its native host library (``geometry/native``) when it is
-built, else the same numpy code; both reference paths are held against the
-port. The port's STEP files must pass the JAX package's own readers and
-conformance validator.
+The port's trimming cell helpers run in its native host library
+(``geometry/native_bindings.py``, built with g++ at first use). The JAX
+package takes its own native library when it is built, else its numpy
+fallback; both reference paths are held against the port. The port's STEP
+files must pass the JAX package's readers and conformance validator and the
+port's own.
 """
 
 import numpy as np
@@ -16,6 +17,9 @@ from brepgen_tpu.geometry import native_bindings
 from brepgen_tpu.geometry.step_conformance import validate_step_file
 from brepgen_tpu.geometry.step_reader import load_brep, validate_solid
 from brepgen_tpu_torch.geometry import brep_build as t_brep_build
+from brepgen_tpu_torch.geometry import native_bindings as t_native_bindings
+from brepgen_tpu_torch.geometry import step_conformance as t_step_conformance
+from brepgen_tpu_torch.geometry import step_reader as t_step_reader
 from brepgen_tpu_torch.geometry import ply as t_ply
 from brepgen_tpu_torch.geometry import stl as t_stl
 from brepgen_tpu_torch.geometry.bspline import fit_bspline_curve, fit_bspline_surface
@@ -33,11 +37,14 @@ SOLIDS = {
 
 @pytest.fixture(params=["numpy", "native"])
 def reference_path(request, monkeypatch):
-    """Which path the JAX package's trimming helpers take."""
+    """Which path the JAX package's trimming helpers take; the port's always
+    take its native library."""
     if request.param == "numpy":
         monkeypatch.setattr(native_bindings, "_load", lambda: None)
     elif not native_bindings.native_available():
         pytest.skip("the JAX package's native host library is not built here")
+    assert native_bindings.native_available() == (request.param == "native")
+    assert t_native_bindings.load() is not None
     return request.param
 
 
@@ -57,15 +64,17 @@ def test_construct_brep_matches_jax(shape, reference_path, tmp_path):
     want, got = _build(j_brep_build, data), _build(t_brep_build, data)
     assert got.face_loops == want.face_loops
     assert got.topology_ok() == want.topology_ok()
-    if reference_path == "numpy":
+    if reference_path == "native":
+        # native on both sides: the same function, the same triangles
         for w, g in zip(want.face_triangles, got.face_triangles):
             assert g.shape == w.shape
             np.testing.assert_allclose(g, w, rtol=0, atol=1e-5)
     else:
-        # the native nearest-grid search breaks exact distance ties (grid
-        # samples equidistant from a boundary point) the other way than the
-        # numpy argmin: a few boundary cells of the prism's caps differ
-        # (1250 against 1238 triangles); the trimmed area agrees within 2%
+        # the port's native nearest-grid search breaks exact distance ties
+        # (grid samples equidistant from a boundary point) the other way than
+        # the JAX package's numpy argmin: a few boundary cells of the prism's
+        # caps differ (1238 against 1250 triangles); the trimmed area agrees
+        # within 2%
         for w, g in zip(want.face_triangles, got.face_triangles):
             assert abs(_area(g) - _area(w)) <= 0.02 * _area(w)
     np.testing.assert_array_equal(got.edge_vertex_adj, want.edge_vertex_adj)
@@ -73,7 +82,7 @@ def test_construct_brep_matches_jax(shape, reference_path, tmp_path):
     for obj, tag in ((want, "jax"), (got, "torch")):
         obj.write_stl(str(tmp_path / f"{tag}.stl"))
         obj.write_step(str(tmp_path / f"{tag}.step"))
-    if reference_path == "numpy":
+    if reference_path == "native":
         np.testing.assert_allclose(t_stl.read_stl(str(tmp_path / "torch.stl")),
                                    t_stl.read_stl(str(tmp_path / "jax.stl")), rtol=0, atol=1e-5)
     assert (tmp_path / "torch.step").read_text() == (tmp_path / "jax.step").read_text()
@@ -88,10 +97,12 @@ def test_step_export_passes_jax_validators(shape, tmp_path):
     solid.write_step(path)
     assert "MANIFOLD_SOLID_BREP" in open(path).read()
     assert validate_step_file(path) == []
+    assert t_step_conformance.validate_step_file(path) == []
     report = validate_solid(load_brep(path))
     assert report["ok"], report
     assert report["n_faces"] == len(data["surf_wcs"])
     assert report["n_edges"] == len(data["edge_wcs"])
+    assert t_step_reader.validate_solid(t_step_reader.load_brep(path)) == report
 
 
 def test_geometric_fallback_passes_jax_validator(tmp_path):
@@ -102,6 +113,7 @@ def test_geometric_fallback_passes_jax_validator(tmp_path):
     write_step(path, [surf], [curve])
     assert "GEOMETRIC_SET" in open(path).read()
     assert validate_step_file(path) == []
+    assert t_step_conformance.validate_step_file(path) == []
 
 
 def test_nonsolid_topology_degrades_to_geometric_set(tmp_path):
@@ -118,6 +130,7 @@ def test_nonsolid_topology_degrades_to_geometric_set(tmp_path):
     text = open(path).read()
     assert "GEOMETRIC_SET" in text and "MANIFOLD_SOLID_BREP" not in text
     assert validate_step_file(path) == []
+    assert t_step_conformance.validate_step_file(path) == []
 
 
 def test_stl_ply_and_sampling_round_trip(tmp_path):

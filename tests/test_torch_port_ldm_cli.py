@@ -97,7 +97,7 @@ def test_unported_options_exit_with_a_message(tmp_path, vae_packs, flag):
     # message; the other three are ported and pass the check
     args = ldm_main.get_args(_argv(tmp_path, vae_packs, "edgez", *flag))
     if flag == ["--dp"]:
-        with pytest.raises(SystemExit, match="not ported yet .ROADMAP queue 1, item 4"):
+        with pytest.raises(SystemExit, match=r"not ported yet \(multi-GPU: .* parallel/\)"):
             ldm_main.refuse_unported(args)
         with pytest.raises(SystemExit, match="not ported yet"):
             ldm_main.main(_argv(tmp_path, vae_packs, "edgez", *flag))

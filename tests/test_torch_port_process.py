@@ -1,7 +1,7 @@
 """Port: the data path from solids to deduplicated training sets, against
 the JAX package on the CPU.
 
-``process_main --synthetic``, ``dedup_solids`` / ``dedup_primitives``,
+``process_main --synthetic`` and ``--input``, ``dedup_solids`` / ``dedup_primitives``,
 ``discover_split`` and ``eval_main dedup`` in both packages, on the same
 seeds and on a tree in the reference layout (as ``tests/test_discovery.py``
 lays it out): the files they write are byte-identical, the arrays and lists
@@ -11,6 +11,8 @@ equal.
 import json
 import os
 import pickle
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -58,9 +60,28 @@ def test_process_main_synthetic_writes_the_same_files(tmp_path, monkeypatch):
     assert len(split["val"]) == len(split["test"]) >= 1 and split["train"]
 
 
-def test_process_main_without_synthetic_names_the_roadmap_item(tmp_path):
-    with pytest.raises(SystemExit, match="ROADMAP queue 1, item 3"):
-        process_main.main(["--input", str(tmp_path), "--output", str(tmp_path / "out")])
+def test_process_main_input_extracts_every_export(tmp_path, monkeypatch):
+    """``process_main --input DIR --output OUT`` (run as ``python -m``)
+    extracts every STEP export in DIR with the native reader: one pkl each,
+    the JAX package's native backend's files byte for byte."""
+    from brepgen_tpu_torch.geometry import construct_brep
+
+    steps = tmp_path / "steps"
+    os.makedirs(steps)
+    for i, data in enumerate(make_dataset(6, seed=1)):
+        construct_brep(data["surf_wcs"], data["edge_wcs"], data["faceEdge_adj"],
+                       data["edgeCorner_adj"]).write_step(str(steps / f"{i:08d}.step"))
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
+    run = subprocess.run([sys.executable, "-m", "brepgen_tpu_torch.cli.process_main", "--input",
+                          str(steps), "--output", str(tmp_path / "port")], cwd=root,
+                         capture_output=True, text=True)
+    assert run.returncode == 0, run.stderr
+    assert "extracted 6 solids" in run.stdout
+    assert j_process_main.native_process_dir(str(steps), str(tmp_path / "jax")) == 6
+    got, want = _tree_bytes(tmp_path / "port"), _tree_bytes(tmp_path / "jax")
+    assert sorted(got) == [f"0000/{i:08d}.pkl" for i in range(6)] and got == want
+    with pytest.raises(SystemExit):
+        process_main.main(["--output", str(tmp_path / "none")])
 
 
 @pytest.mark.parametrize("n_bits", [4, 6])
