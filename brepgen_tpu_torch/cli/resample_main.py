@@ -99,9 +99,14 @@ def generate(cascade: Cascade, batches: int, seed: int,
     for b in range(batches):
         noise = GeneratorNoise(torch.Generator(device=cascade.device).manual_seed(seed + b))
         out.append({k: v.cpu().numpy() for k, v in cascade(noise, stage_times).items()})
+    # the card's reserved memory: a --cf run keeps every class's graphs
+    held = ""
+    if cascade.device.type == "cuda":
+        gib = torch.cuda.memory_reserved(cascade.device) / 2**30
+        held = f"; card memory reserved {gib:.3f} GiB"
     print(f"sampled {batches} batches of {cascade.cfg.batch_size} in "
           f"{time.perf_counter() - t0:.2f} s; cascade seconds per stage: "
-          + ", ".join(f"{k} {v:.2f}" for k, v in stage_times.items()), flush=True)
+          + ", ".join(f"{k} {v:.2f}" for k, v in stage_times.items()) + held, flush=True)
     if dump_path:
         os.makedirs(os.path.dirname(dump_path), exist_ok=True)
         np.savez_compressed(dump_path, **{f"{k}__{b}": v for b, batch in enumerate(out)

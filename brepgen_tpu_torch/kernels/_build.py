@@ -102,10 +102,11 @@ def load(name: str) -> ctypes.CDLL:
 SASS_OPCODES = ("HMMA", "HGMMA", "UTMALDG")
 
 
-def sass_counts(name: str) -> dict[str, dict[str, int]] | None:
-    """{kernel function: {opcode: count}} of ``SASS_OPCODES`` in the built
-    library, read with the toolkit's ``cuobjdump -sass``; None where the
-    toolkit has no ``cuobjdump``."""
+def sass_counts(name: str, opcodes=SASS_OPCODES) -> dict[str, dict[str, int]] | None:
+    """{kernel function: {opcode: count}} of ``opcodes`` in the built library,
+    read with the toolkit's ``cuobjdump -sass``; None where the toolkit has
+    no ``cuobjdump``. Counts are of the compiled code, not of executed
+    instructions."""
     tool = os.path.join(os.path.dirname(find_nvcc()), "cuobjdump")
     if not os.access(tool, os.X_OK):
         return None
@@ -116,10 +117,10 @@ def sass_counts(name: str) -> dict[str, dict[str, int]] | None:
     for line in sass.splitlines():
         if "Function :" in line:
             func = line.split("Function :", 1)[1].strip()
-            counts[func] = dict.fromkeys(SASS_OPCODES, 0)
+            counts[func] = dict.fromkeys(opcodes, 0)
         elif func is not None:
             words = line.replace(";", " ").split()
-            for op in SASS_OPCODES:
+            for op in opcodes:
                 if any(w.split(".")[0] == op for w in words):
                     counts[func][op] += 1
     return counts

@@ -108,7 +108,7 @@ def chamfer_matrix(x: torch.Tensor, y: torch.Tensor,
         raise TypeError(f"chamfer_matrix: dtype must be float32, got {x.dtype} and {y.dtype}")
     if not (x.is_contiguous() and y.is_contiguous()):
         raise ValueError("chamfer_matrix: x and y must be contiguous")
-    out = torch.zeros((S, R), dtype=torch.float32, device=x.device)
+    out = torch.empty((S, R), dtype=torch.float32, device=x.device)  # the kernel writes all
     if S == 0 or R == 0:
         return out
     lib = _library()

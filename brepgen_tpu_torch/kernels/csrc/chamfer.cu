@@ -9,25 +9,43 @@
 //
 // where n <= P is the true point count (points at n..P-1 are padding and are
 // read by no thread). Distances are direct differences summed over the three
-// coordinates, as the Pallas body builds them; the expansion form
-// |x|^2 + |y|^2 - 2 x.y cancels badly for near points.
+// coordinates in the Pallas body's order ((dx^2 + dy^2) + dz^2), so a cloud
+// against itself gives an exact zero; the expansion |x|^2 + |y|^2 - 2 x.y
+// cancels badly for near points.
 //
-// What bounds it: operations. Each pair and direction evaluates n^2
-// distances of 8 FLOP (3 sub, 3 mul, 2 add) plus a min, in f32 on the FMA
-// pipes: at the protocol's n = 2000 one pair is 64 MFLOP against 48 KB of
-// clouds, so memory traffic is negligible. K = 3 makes tensor cores useless
-// and the f32 bar rules out TF32.
+// What bounds it: operations. A pair of clouds needs n^2 distances of 8 FLOP
+// (3 sub, 3 mul, 2 add); at the protocol's n = 2000 that is 32 MFLOP against
+// 48 KB of clouds, so memory traffic is negligible. K = 3 makes tensor cores
+// useless and the f32 bar rules out TF32. On the card the limit is the issue
+// rate: each distance is 6 instructions (3 FADD, FMUL, 2 FFMA) and feeds two
+// running mins (2 FMNMX), 8 instructions a point pair.
 //
-// Design (simple first): one direction D(a, b)[i, j] is the mean over a_i's
-// points of the min over b_j's points, and the matrix is D(x, y) + D(y, x)^T.
-// One launch covers both directions; a block takes one a-cloud and a tile of
-// up to kTileB b-clouds. Each thread owns kPerThread points of a_i in
-// registers with a running min each; the block stages one b-cloud at a time
-// in shared memory as float4 (one broadcast 16-byte load per point) and
-// every thread sweeps it. A block reduction gives the sum over a_i's points
-// and one thread adds sum / n into out. Every out element receives exactly
-// two additions onto the zeros the wrapper allocates, one per direction, so
-// the result does not depend on their order (a + b == b + a in IEEE f32).
+// Design: each point-pair distance is evaluated once and feeds both
+// directions. One launch, one block per (x_i, y_j) pair, each out[i, j]
+// written once by that block (no atomics onto the output, so two launches on
+// the same inputs give the same bits). The block stages b = y_j in shared
+// memory as float4 (one broadcast 16-byte load per point), padded to a
+// multiple of kGroup with +inf points that enter no min; the fourth slot of
+// each point holds its column min. Each of its kThreads threads keeps
+// kPerThread points of a = x_i in registers (+inf past n, so they enter no
+// column min) with their row mins, for a pass of kPass points; a larger n
+// takes further passes over a. A thread sweeps b in groups of kGroup points:
+// kPerThread x kGroup distances update its kPerThread row mins and kGroup
+// column mins over its own a-points. A warp butterfly reduce-scatter (one
+// SHFL and one FMNMX per value and step, plus two SEL) leaves each lane with
+// one column's min over the warp, and an unsigned atomicMin on the point's
+// fourth slot combines the warps and the passes: the distances are
+// non-negative floats (never -0), whose bits order as unsigned integers, and
+// min is exact, so the order of the atomics does not matter. Both sums of
+// mins are then taken in a fixed order (per thread, then a shuffle tree,
+// then the warps in order). There is no double buffer of b: three more
+// blocks of 128 threads share each SM, and their sweeps cover one block's
+// staging.
+//
+// kGroup = 8: the reduce-scatter costs the same share of a group's work at
+// 8, 16 or 32 (about 3%), and at 128 registers (four blocks an SM) groups
+// of 16 and 32 put the column mins on the stack (64 and 128 bytes of stack
+// frame in ptxas's report) and ran slower on an H100 at 256 x 256 x 2000.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -35,12 +53,17 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kPerThread = 8;
-constexpr int kPass = kThreads * kPerThread;  // a-points per sweep of the block
-constexpr int kTileB = 16;                    // b-clouds per block
+constexpr int kThreads = 128;
+constexpr int kMinBlocks = 4;  // blocks an SM holds: at most 128 registers a thread
+constexpr int kWarps = kThreads / 32;
+constexpr int kPerThread = 16;
+constexpr int kPass = kThreads * kPerThread;  // a-points per pass of the block
+constexpr int kGroup = 8;                     // b-points per register group
+constexpr int kLanesPerColumn = 32 / kGroup;  // lanes that end with one column's min
 constexpr int kMaxSmem = 232448 - 1024;       // dynamic bytes: a Hopper block's 227 KB
-                                              // less room for partial[]
+                                              // less room for the static arrays
+// points of one cloud, padded to whole groups, that fit the staged b-cloud
+constexpr int kMaxPoints = kMaxSmem / static_cast<int>(sizeof(float4)) / 32 * 32;
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -48,98 +71,126 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-__global__ void __launch_bounds__(kThreads)
-chamfer_kernel(const float* __restrict__ x, const float* __restrict__ y,
-               float* __restrict__ out, int S, int R, int P, int n,
-               long long blocks_fwd, int tiles_r, int tiles_s) {
-  extern __shared__ float4 cloud[];  // [n] staged b-cloud (x, y, z, 0)
-  __shared__ float partial[kThreads / 32];
+// v[c] is this lane's min for column c of the group; afterwards v[0] holds
+// the warp's min for column lane / kLanesPerColumn.
+__device__ __forceinline__ void column_reduce_scatter(float (&v)[kGroup], int lane) {
+  int off = 16;
+#pragma unroll
+  for (int h = kGroup / 2; h >= 1; h >>= 1, off >>= 1) {
+    const bool upper = lane & off;
+#pragma unroll
+    for (int c = 0; c < h; ++c) {
+      const float keep = upper ? v[c + h] : v[c];
+      const float send = upper ? v[c] : v[c + h];
+      v[c] = fminf(keep, __shfl_xor_sync(0xffffffffu, send, off));
+    }
+  }
+#pragma unroll
+  for (int o = kLanesPerColumn / 2; o >= 1; o >>= 1)
+    v[0] = fminf(v[0], __shfl_xor_sync(0xffffffffu, v[0], o));
+}
 
-  long long bid = blockIdx.x;
-  const bool fwd = bid < blocks_fwd;
-  if (!fwd) bid -= blocks_fwd;
-  const int tiles = fwd ? tiles_r : tiles_s;
-  const int i = static_cast<int>(bid / tiles);
-  const int j0 = static_cast<int>(bid % tiles) * kTileB;
-  const float* a = (fwd ? x : y) + static_cast<size_t>(i) * P * 3;
-  const float* b_all = fwd ? y : x;
-  const int nb = fwd ? R : S;
-  const int j_end = min(j0 + kTileB, nb);
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+chamfer_kernel(const float* __restrict__ x, const float* __restrict__ y,
+               float* __restrict__ out, int R, int P, int n) {
+  extern __shared__ float4 smem[];
+  const int n_pad = (n + kGroup - 1) / kGroup * kGroup;
+  float4* cloud = smem;  // [n_pad] b (x, y, z, column min)
+  __shared__ float partial[kWarps][2];
+
+  const long long bid = blockIdx.x;
+  const int i = static_cast<int>(bid / R), j = static_cast<int>(bid % R);
+  const float* a = x + static_cast<size_t>(i) * P * 3;
+  const float* b = y + static_cast<size_t>(j) * P * 3;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 
-  for (int j = j0; j < j_end; ++j) {
-    const float* b = b_all + static_cast<size_t>(j) * P * 3;
-    __syncthreads();  // the previous b-cloud and partial[] are consumed
-    for (int q = threadIdx.x; q < n; q += kThreads)
-      cloud[q] = make_float4(b[3 * q], b[3 * q + 1], b[3 * q + 2], 0.f);
-    __syncthreads();
+  for (int q = threadIdx.x; q < n_pad; q += kThreads) {
+    cloud[q] = q < n ? make_float4(b[3 * q], b[3 * q + 1], b[3 * q + 2], CUDART_INF_F)
+                     : make_float4(CUDART_INF_F, CUDART_INF_F, CUDART_INF_F, CUDART_INF_F);
+  }
+  __syncthreads();
 
-    float total = 0.f;
-    for (int p0 = 0; p0 < n; p0 += kPass) {
-      float px[kPerThread], py[kPerThread], pz[kPerThread], m[kPerThread];
+  float row_total = 0.f;
+  for (int p0 = 0; p0 < n; p0 += kPass) {
+    float ax[kPerThread], ay[kPerThread], az[kPerThread], row_min[kPerThread];
 #pragma unroll
-      for (int k = 0; k < kPerThread; ++k) {
-        const int p = p0 + k * kThreads + threadIdx.x;
-        const bool ok = p < n;
-        px[k] = ok ? a[3 * p] : 0.f;
-        py[k] = ok ? a[3 * p + 1] : 0.f;
-        pz[k] = ok ? a[3 * p + 2] : 0.f;
-        m[k] = CUDART_INF_F;
-      }
-#pragma unroll 4
-      for (int q = 0; q < n; ++q) {
-        const float4 c = cloud[q];
+    for (int k = 0; k < kPerThread; ++k) {
+      const int p = p0 + k * kThreads + threadIdx.x;
+      const bool ok = p < n;
+      ax[k] = ok ? a[3 * p] : CUDART_INF_F;
+      ay[k] = ok ? a[3 * p + 1] : CUDART_INF_F;
+      az[k] = ok ? a[3 * p + 2] : CUDART_INF_F;
+      row_min[k] = CUDART_INF_F;
+    }
+#pragma unroll 1
+    for (int g0 = 0; g0 < n_pad; g0 += kGroup) {
+      float col[kGroup];
+#pragma unroll
+      for (int c = 0; c < kGroup; ++c) {
+        const float4 q = cloud[g0 + c];
 #pragma unroll
         for (int k = 0; k < kPerThread; ++k) {
-          const float dx = px[k] - c.x, dy = py[k] - c.y, dz = pz[k] - c.z;
+          const float dx = ax[k] - q.x, dy = ay[k] - q.y, dz = az[k] - q.z;
           float d = dx * dx;
           d = d + dy * dy;
           d = d + dz * dz;
-          m[k] = fminf(m[k], d);
+          row_min[k] = fminf(row_min[k], d);
+          col[c] = k == 0 ? d : fminf(col[c], d);
         }
       }
+      column_reduce_scatter(col, lane);
+      if ((lane & (kLanesPerColumn - 1)) == 0)
+        atomicMin(reinterpret_cast<unsigned*>(&cloud[g0 + lane / kLanesPerColumn].w),
+                  __float_as_uint(col[0]));
+    }
 #pragma unroll
-      for (int k = 0; k < kPerThread; ++k)
-        if (p0 + k * kThreads + threadIdx.x < n) total += m[k];
-    }
+    for (int k = 0; k < kPerThread; ++k)
+      if (p0 + k * kThreads + threadIdx.x < n) row_total += row_min[k];
+  }
+  __syncthreads();  // every column min is final
 
-    total = warp_sum(total);
-    if (lane == 0) partial[warp] = total;
-    __syncthreads();
-    if (warp == 0) {
-      float v = lane < kThreads / 32 ? partial[lane] : 0.f;
-      v = warp_sum(v);
-      if (lane == 0) {
-        const size_t idx = fwd ? static_cast<size_t>(i) * R + j : static_cast<size_t>(j) * R + i;
-        atomicAdd(out + idx, v / static_cast<float>(n));
-      }
+  float col_total = 0.f;
+  for (int q = threadIdx.x; q < n; q += kThreads) col_total += cloud[q].w;
+  row_total = warp_sum(row_total);
+  col_total = warp_sum(col_total);
+  if (lane == 0) {
+    partial[warp][0] = row_total;
+    partial[warp][1] = col_total;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float rows = 0.f, cols = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      rows += partial[w][0];
+      cols += partial[w][1];
     }
+    const float nf = static_cast<float>(n);
+    out[bid] = rows / nf + cols / nf;
   }
 }
 
 }  // namespace
 
 // x [S, P, 3], y [R, P, 3] f32 contiguous on the current device; out [S, R]
-// f32, zero-filled by the caller. Returns a cudaError_t (0 on success).
+// f32, every element written once. Returns a cudaError_t (0 on success).
 extern "C" int chamfer_matrix_forward(const float* x, const float* y, float* out, int S,
                                       int R, int P, int n, void* stream) {
-  if (S <= 0 || R <= 0 || n <= 0 || n > P) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = sizeof(float4) * static_cast<size_t>(n);
-  if (smem > static_cast<size_t>(kMaxSmem)) return static_cast<int>(cudaErrorInvalidValue);
-  const int tiles_r = (R + kTileB - 1) / kTileB;
-  const int tiles_s = (S + kTileB - 1) / kTileB;
-  const long long blocks_fwd = static_cast<long long>(S) * tiles_r;
-  const long long blocks = blocks_fwd + static_cast<long long>(R) * tiles_s;
+  if (S <= 0 || R <= 0 || n <= 0 || n > P || n > kMaxPoints)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long blocks = static_cast<long long>(S) * R;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const int n_pad = (n + kGroup - 1) / kGroup * kGroup;
+  const size_t smem = sizeof(float4) * n_pad;
   cudaError_t err = cudaFuncSetAttribute(chamfer_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   chamfer_kernel<<<static_cast<unsigned>(blocks), kThreads, smem,
-                   static_cast<cudaStream_t>(stream)>>>(x, y, out, S, R, P, n, blocks_fwd,
-                                                        tiles_r, tiles_s);
+                   static_cast<cudaStream_t>(stream)>>>(x, y, out, R, P, n);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Largest point count one launch takes (the staged cloud fills shared memory).
-extern "C" int chamfer_max_points() { return kMaxSmem / static_cast<int>(sizeof(float4)); }
+// Largest point count one launch takes (the staged cloud fills shared
+// memory).
+extern "C" int chamfer_max_points() { return kMaxPoints; }

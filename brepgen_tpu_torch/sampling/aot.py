@@ -20,7 +20,12 @@ What a captured call holds:
 - Its output is cloned after each replay: the schedulers keep eps outputs
   across calls (PNDM's history).
 - All graphs share one memory pool. Inputs live outside it and outputs are
-  cloned at once, so graphs may replay in any order.
+  cloned at once, so graphs may replay in any order. ``StageGraphs`` holds
+  every graph it captured for as long as it lives, also those of cascades
+  that are gone (``resample_main --cf`` builds one cascade per class and
+  guidance weight over one ``StageGraphs``): PyTorch keeps a pool whose
+  graphs have all been destroyed until its memory is freed, and refuses a
+  new capture into it.
 - A replay runs none of the kernel wrappers, so each graph records what its
   capture added to ``LAUNCH_COUNTS`` and adds that at every replay. The
   record is held to the graph itself: the capture counts the graph's kernel
@@ -164,6 +169,7 @@ class StageGraphs:
                                f"manifest) and needs a CUDA card; device {dev} is not one")
         self.cache_dir = cache_dir
         self.pool = torch.cuda.graph_pool_handle()
+        self.calls: List[CapturedCall] = []  # keeps the pool live (module docstring)
         self.entries: List[Dict] = []
         if cache_dir:
             os.makedirs(cache_dir, exist_ok=True)
@@ -224,7 +230,8 @@ class StageGraphs:
             launches=launches,
         ))
         self._write_manifest()
-        return CapturedCall(graph, sx, st, sc, out, launches)
+        self.calls.append(CapturedCall(graph, sx, st, sc, out, launches))
+        return self.calls[-1]
 
     def _write_manifest(self) -> None:
         if not self.cache_dir:

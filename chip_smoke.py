@@ -17,12 +17,13 @@ the sample CLI's ``--config`` (the long-set kernel), the default PNDM + DDPM
 protocol on the all160k packs with host postprocess overlapping the cascade
 (STEP + STL), one batch post-processed serially, and point clouds from the
 solids scored against reference clouds drawn from ``--seed`` through the
-Chamfer kernel. On the card every cascade replays each stage's denoiser call
-from a CUDA graph, as the entry points do; after each of the deepcad, abc,
-all160k abc (full and compacted) and long-set runs its graphs leg runs the
-same cascade eagerly on the same noise and holds the captured run to it
-(outputs of every batch, kernel launches per batch, seconds per stage at
-each batch index). Phase rescore samples the all160k packs at their
+Chamfer kernel (K4, also held to its plain version on the real clouds of
+phases eval and rescore). On the card every cascade replays each stage's
+denoiser call from a CUDA graph, as the entry points do; after each of the
+deepcad, abc, all160k abc (full and compacted) and long-set runs its graphs
+leg runs the same cascade eagerly on the same noise and holds the captured
+run to it (outputs of every batch, kernel launches per batch, seconds per
+stage at each batch index). Phase rescore samples the all160k packs at their
 training size (10 x 8, B=16, bf16, captured) through ``resample_main
 --recover --dump``, replays the dump strictly, holds the captured batch 0 to
 the same batch eagerly, and scores both sets through ``metrics_main``
@@ -1050,9 +1051,12 @@ def phase_step(torch, np, solids_dir, solid_steps, work, pipeline):
 
 
 def chamfer_bound(S, R, P, n):
-    """2 directions x S*R*n^2 distances x 8 FLOP (3 sub, 3 mul, 2 add) in
-    f32 against each cloud read once and the matrix written once."""
-    flops = 2.0 * S * R * n * n * 8
+    """S*R*n^2 distances x 8 FLOP (3 sub, 3 mul, 2 add) in f32 against each
+    cloud read once and the matrix written once. Each point-pair distance
+    is counted once: both directions' mins read the same distance, so the
+    function needs it once (a kernel with a pass per direction evaluates it
+    twice, and this bound once counted it twice)."""
+    flops = 1.0 * S * R * n * n * 8  # issue floor: 8 instructions a pair (6 + 2 FMNMX)
     nbytes = (S + R) * P * 3 * 4 + S * R * 4
     t_ops, t_bytes = flops / PEAK_FLOPS["float32"] * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
@@ -1071,7 +1075,48 @@ def cdist_yardstick(torch, x, y, refs=64):
     return out
 
 
-def phase_chamfer(torch, gen):
+def chamfer_build_line(_build):
+    """K4's registers and spills (-Xptxas=-v) and its FADD / FMUL / FFMA /
+    FMNMX counts in the compiled kernel (cuobjdump), as one text."""
+    regs = ptxas_table(_build.BUILD_LOG.get("chamfer", (0.0, ""))[1])
+    sass = _build.sass_counts("chamfer", ("FADD", "FMUL", "FFMA", "FMNMX")) or {}
+    parts = []
+    for func, (r, st, ld) in regs.items():
+        n = sass.get(func)
+        text = f"{kernel_label(func)}: {r} registers, spills {st} B stored / {ld} B loaded"
+        if n:
+            arith = n["FADD"] + n["FMUL"] + n["FFMA"]
+            text += (", SASS " + ", ".join(f"{v} {k}" for k, v in n.items())
+                     + f" ({arith / max(n['FMNMX'], 1):.2f} FADD+FMUL+FFMA per FMNMX)")
+        parts.append(text)
+    return "; ".join(parts) or "no ptxas report"
+
+
+def hold_chamfer_on_clouds(torch, np, label, fake_dir, real_dir, limit=64):
+    """K4 on the first ``limit`` normalize_pc'd clouds of each folder (as the
+    protocol loads them) against its plain version on the card, at
+    CHAMFER_REL / CHAMFER_ABS; these comparison launches are not the
+    path's. Returns the max abs error."""
+    from brepgen_tpu_torch.eval.pipeline import _load_clouds
+    from brepgen_tpu_torch.kernels.chamfer import chamfer_matrix, chamfer_matrix_reference
+
+    x = torch.from_numpy(_load_clouds(fake_dir)[:limit].astype(np.float32)).cuda()
+    y = torch.from_numpy(_load_clouds(real_dir)[:limit].astype(np.float32)).cuda()
+    got = chamfer_matrix(x, y)
+    want = chamfer_matrix_reference(x, y)
+    diff = (got - want).abs()
+    err = diff.max().item()
+    if (diff > CHAMFER_REL * want.abs() + CHAMFER_ABS).any() or not torch.isfinite(got).all():
+        raise AssertionError(f"{label}: K4 on the real clouds ({x.shape[0]} x {y.shape[0]}) "
+                             f"against its plain version: max_abs_err {err:.3e}, tolerance "
+                             f"{CHAMFER_REL:g}*|plain| + {CHAMFER_ABS:g}")
+    log(f"{label}: K4 on {x.shape[0]} x {y.shape[0]} real normalize_pc'd clouds against its "
+        f"plain version on the card: max_abs_err {err:.3e} (smallest entry "
+        f"{want.min().item():.3e}); tolerance {CHAMFER_REL:g}*|plain| + {CHAMFER_ABS:g}")
+    return err
+
+
+def phase_chamfer(torch, gen, _build):
     from brepgen_tpu_torch.kernels.chamfer import chamfer_matrix, chamfer_matrix_reference
 
     shapes = []
@@ -1095,9 +1140,13 @@ def phase_chamfer(torch, gen):
             row["ms"] = time_ms(torch, lambda: chamfer_matrix(x, y, n_pts=n), 5)
             row["plain_ms"] = time_ms(torch, lambda: chamfer_matrix_reference(x, y, n), 1)
             row["yardstick_ms"] = time_ms(torch, lambda: cdist_yardstick(torch, x, y), 1)
+            if not torch.equal(got, chamfer_matrix(x, y, n_pts=n)):
+                raise AssertionError(f"chamfer S={S} R={R} P={P} n={n}: two launches on the "
+                                     f"same inputs differ")
             times = (f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, cdist "
                      f"yardstick (several calls) {row['yardstick_ms']:.4f} ms, bound "
-                     f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+                     f"{row['bound_ms']:.4f} ms ({row['bound_by']}); two launches bit-equal; "
+                     f"{chamfer_build_line(_build)}")
         else:
             times = f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})"
         shapes.append(row)
@@ -1354,11 +1403,13 @@ def phase_eval(torch, np, stl_root, work, seed, times=3):
           and 0 < avg["avg-COV-CD"] <= 1 and 0 <= avg["avg-JSD"] <= 1)
     if not ok:
         raise AssertionError(f"eval: metrics out of range {avg}")
+    real_err = hold_chamfer_on_clouds(torch, np, "eval", fake, real)
     log(f"eval: {n_fake} STLs sampled to 2000-point clouds in {t1 - t0:.2f} s; "
         f"against 64 random-box clouds (seed {seed}), {times} repeats in {t2 - t1:.2f} s, "
         f"chamfer launches {launches['chamfer']} (one per repeat); SMOKE values, not a "
         f"quality number: " + ", ".join(f"{k} {v:.6f}" for k, v in avg.items()))
-    return dict(clouds=n_fake, launches=launches["chamfer"], seconds=t2 - t1, metrics=avg)
+    return dict(clouds=n_fake, launches=launches["chamfer"], seconds=t2 - t1, metrics=avg,
+                max_abs_err_real_clouds=real_err)
 
 
 def phase_abc_compact(torch, np):
@@ -1548,6 +1599,10 @@ def phase_rescore(torch, np, work):
         raise AssertionError(f"rescore metrics: launches {dict(LAUNCH_COUNTS)}, expected 6 "
                              f"chamfer (3 repeats x 2 sets)")
     t4 = time.perf_counter()
+    real_errs = {name: hold_chamfer_on_clouds(
+        torch, np, f"rescore metrics ({name})",
+        os.path.join(work, name, "z0.2") + "_fake_ply", os.path.join(work, "heldout_ply"))
+        for name in scores}
     n = line_rec["attempted"]
     if line_rec["validity"] < RESCORE_MIN["recovered"] or \
             line_strict["validity"] < RESCORE_MIN["strict"]:
@@ -1575,7 +1630,7 @@ def phase_rescore(torch, np, work):
                 launches=want, recovered={k: line_rec[k] for k in keep},
                 strict={k: line_strict[k] for k in keep}, metrics=scores,
                 graphs=len(manifest), max_abs_diff_eager=errs, chamfer_launches=6,
-                seconds=t4 - t0)
+                chamfer_max_abs_err_real_clouds=real_errs, seconds=t4 - t0)
 
 
 KERNEL_NAMES = ("set_attention_kernel", "packed_attention_kernel",
@@ -1728,7 +1783,8 @@ def main(argv=None) -> int:
     log(f"phase kernel packed_attention_backward done in {time.perf_counter() - t:.2f} s")
 
     t = time.perf_counter()
-    chamfer_shapes = phase_chamfer(torch, torch.Generator(device="cuda").manual_seed(args.seed))
+    chamfer_shapes = phase_chamfer(torch, torch.Generator(device="cuda").manual_seed(args.seed),
+                                   _build)
     log(f"phase kernel chamfer done in {time.perf_counter() - t:.2f} s")
 
     t = time.perf_counter()

@@ -206,6 +206,89 @@ def test_chamfer_of_a_cloud_with_itself_is_zero(cuda):
     assert (d.fill_diagonal_(1.0) > 0).all()
 
 
+def _hold_chamfer(x, y, n, cuda):
+    """K4 on the card against its plain version on the first n points, at
+    the bar of the tests above; the padding past n is NaN on both sides."""
+    x, y = x.clone(), y.clone()
+    x[:, n:] = float("nan")
+    y[:, n:] = float("nan")
+    before = LAUNCH_COUNTS["chamfer"]
+    got = chamfer_matrix(x.to(cuda), y.to(cuda), n_pts=n)
+    assert LAUNCH_COUNTS["chamfer"] == before + 1
+    want = chamfer_matrix_reference(x[:, :n].to(cuda), y[:, :n].to(cuda))
+    assert torch.isfinite(got).all()
+    assert ((got - want).abs() <= 1e-5 * want.abs() + 1e-7).all()
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,R,P,n", [(3, 4, 1, 1), (3, 4, 9, 1), (4, 3, 40, 31), (3, 4, 40, 33),
+                                     (5, 4, 300, 257), (3, 2, 2100, 2001), (2, 3, 2049, 2049),
+                                     (1, 5, 70, 61), (17, 1, 130, 129)])
+def test_chamfer_point_and_cloud_edges_on_card(cuda, S, R, P, n):
+    # n against the kernel's groups of b-points and its 2048-point passes
+    # over a; S x R of one row and of one column
+    _hold_chamfer(_clouds(S, P, seed=n), _clouds(R, P, seed=n + 1), n, cuda)
+
+
+@pytest.mark.cuda
+def test_chamfer_at_its_largest_point_count_on_card(cuda):
+    from brepgen_tpu_torch.kernels.chamfer import _library
+
+    n = _library().chamfer_max_points()
+    assert 2049 < n < 20000
+    _hold_chamfer(_clouds(1, n + 3, seed=5), _clouds(2, n + 3, seed=6), n, cuda)
+    with pytest.raises(ValueError, match="at most"):
+        chamfer_matrix(torch.zeros((1, n + 1, 3), device=cuda),
+                       torch.zeros((1, n + 1, 3), device=cuda))
+
+
+@pytest.mark.cuda
+def test_chamfer_two_launches_are_bit_equal_on_card(cuda):
+    x, y = _clouds(37, 2000, seed=7).to(cuda), _clouds(13, 2000, seed=8).to(cuda)
+    first = chamfer_matrix(x, y, n_pts=1999)
+    assert torch.equal(first, chamfer_matrix(x, y, n_pts=1999))
+
+
+def _box_surface_clouds(S, P, seed):
+    """S clouds on box surfaces inside the unit cube, centred and scaled as
+    the eval protocol's normalize_pc, and their twins: the same points with
+    a jitter of 1e-4, shuffled (nearest distances about 1e-4)."""
+    rng = np.random.default_rng(seed)
+    clouds, twins = [], []
+    for _ in range(S):
+        lo = rng.uniform(0.0, 0.3, 3)
+        size = rng.uniform(0.3, 0.7, 3)
+        areas = np.tile([size[1] * size[2], size[0] * size[2], size[0] * size[1]], 2)
+        face = rng.choice(6, size=P, p=areas / areas.sum())
+        pts = lo + rng.random((P, 3)) * size
+        axis = face % 3
+        pts[np.arange(P), axis] = np.where(face < 3, lo[axis], lo[axis] + size[axis])
+        pts -= pts.mean(0)
+        pts /= np.abs(pts).max()
+        clouds.append(pts)
+        twins.append(pts[rng.permutation(P)] + rng.normal(scale=1e-4, size=(P, 3)))
+    return (torch.from_numpy(np.stack(clouds).astype(np.float32)),
+            torch.from_numpy(np.stack(twins).astype(np.float32)))
+
+
+@pytest.mark.cuda
+def test_chamfer_of_near_duplicate_unit_cube_clouds_on_card(cuda):
+    x, y = _box_surface_clouds(24, 2000, seed=11)
+    got = _hold_chamfer(x, y, 2000, cuda)
+    twins = torch.diagonal(got)
+    assert (twins > 0).all() and (twins < 2e-7).all()
+    # the twin entries are about as small as the bar's absolute term, so
+    # they are also held to f64 with a relative bar alone: the expansion
+    # |x|^2 + |y|^2 - 2 x.y is about 20% off there, direct differences are not
+    exact = []
+    for a, b in zip(x.to(cuda, torch.float64), y.to(cuda, torch.float64)):
+        d2 = ((a[:, None, :] - b[None, :, :]) ** 2).sum(-1)
+        exact.append(d2.amin(1).mean() + d2.amin(0).mean())
+    exact = torch.stack(exact)
+    assert ((twins.double() - exact).abs() <= 1e-5 * exact + 1e-12).all()
+
+
 @pytest.mark.cuda
 def test_chamfer_rejects_unsupported_input(cuda):
     x = torch.zeros((2, 8, 3), device=cuda)
@@ -599,6 +682,32 @@ def test_stage_graphs_bf16_wgmma_replay_after_other_allocations_on_card(cuda):
     for eager_out, captured_out, eager_k1, captured_k1 in runs:
         _assert_same(eager_out, captured_out, 0.0)
         assert captured_k1 == eager_k1 > 0
+
+
+@pytest.mark.cuda
+def test_stage_graphs_capture_after_a_cascades_graphs_are_gone_on_card(cuda):
+    # resample_main --cf: one StageGraphs, a new cascade (and store of
+    # graphs) per class; capturing into the shared pool after the first
+    # store is dropped raised PyTorch's "use_count > 0" assert at class 2.
+    # The stage holds a matmul, as every denoiser does; integer values keep
+    # its products exact
+    import gc
+
+    from brepgen_tpu_torch.sampling.aot import StageGraphs
+
+    graphs = StageGraphs(None, cuda)
+    x = torch.arange(32, dtype=torch.float32, device=cuda).reshape(4, 8)
+    w = (torch.arange(64, device=cuda).reshape(8, 8) % 5 - 2).float()
+    for cls in range(3):
+        captured = {}
+        c = torch.full((1,), cls + 1.0, device=cuda)
+        eps = graphs.stage("surfpos", lambda x, t, c: (x @ w) * c + t, (c,), captured,
+                           torch.float32)
+        for t in range(2):
+            assert torch.equal(eps(x, t), (x @ w) * c + t)
+        del captured, eps
+        gc.collect()
+    assert len(graphs.calls) == 3
 
 
 @pytest.mark.cuda
