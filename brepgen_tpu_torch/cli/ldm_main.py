@@ -19,14 +19,29 @@ batch producer's thread, and hands the steps the latents (refused with
 ``--data_aug``); ``--profile DIR`` writes a ``torch.profiler`` trace of
 steps 10-29 (or to the end of their epoch) to ``DIR/trace.json`` and prints
 the device idle share; ``--remat dots`` keeps the outputs of the dense
-products and recomputes the rest of each layer in the backward. ``--dp``
-waits for multi-GPU (the JAX package's ``parallel/``) and exits with a message.
+products and recomputes the rest of each layer in the backward.
+
+``--dp`` trains data-parallel over the processes of a torchrun launch, one
+card each (NCCL; gloo with ``--device cpu``)::
+
+    torchrun --nproc_per_node N -m brepgen_tpu_torch.cli.ldm_main --dp ...
+
+``--batch_size`` is the global batch, which must divide among the N ranks.
+Each rank assembles its rows of every batch (the same draws per sample as
+one process), the model is wrapped in ``DistributedDataParallel``, losses
+are the global batch's masked means and the step's draws (noise, timesteps,
+dropout masks, label drops) are the global batch's, so N ranks take the
+step one process takes on the whole batch. Rank 0 writes the packs, the
+resume file, the metrics and the ``--profile`` trace. Unlike the JAX CLI,
+which trains on one device where a mesh is impossible, ``--dp`` outside a
+torchrun launch, or with a batch that does not divide, exits with a message.
 """
 
 from __future__ import annotations
 
 import argparse
 import functools
+import json
 import os
 import pickle
 import time
@@ -56,11 +71,19 @@ from brepgen_tpu_torch.data.latent_cache import LatentCache
 from brepgen_tpu_torch.data.loader import Batcher, prefetch_to_device
 from brepgen_tpu_torch.data.synthetic import make_dataset
 from brepgen_tpu_torch.diffusion.ddpm import make_ddpm_tables
+from brepgen_tpu_torch.kernels import LAUNCH_COUNTS
 from brepgen_tpu_torch.nn import EdgeVAE, SurfVAE
+from brepgen_tpu_torch.parallel.distributed import (
+    TORCHRUN_HINT,
+    RowSplit,
+    all_reduce_sum,
+    launched,
+    maybe_initialize_distributed,
+)
 from brepgen_tpu_torch.train import ldm_train
 from brepgen_tpu_torch.train.checkpoint import load_params, load_resume
 from brepgen_tpu_torch.train.common import TrainState, make_ldm_optimizer
-from brepgen_tpu_torch.train.logging import MetricsLogger
+from brepgen_tpu_torch.train.logging import MetricsLogger, NullLogger
 from brepgen_tpu_torch.train.loop import RESUME_FILE, run_training
 from brepgen_tpu_torch.train.vae_train import make_encoder_fn
 from brepgen_tpu_torch.utils.profiling import StepTrace
@@ -72,9 +95,8 @@ BATCH_KEYS = {
     "edgez": ("edgepnt", "edgepos", "edge_mask", "surfpnt", "surfpos", "vertpos"),
 }
 SMALL = ARCHS["small"]["denoiser"]
-# what is not ported yet, and what it waits for
-NOT_PORTED = ("is not ported yet (multi-GPU: the port has no counterpart of the JAX "
-              "package's parallel/)")
+DP_NEEDS_TORCHRUN = (f"ldm_main: --dp trains over the processes of a torchrun launch: run "
+                     f"{TORCHRUN_HINT} -m brepgen_tpu_torch.cli.ldm_main --dp ...")
 CACHE_NEEDS_NO_AUG = ("--cache_latents requires --data_aug off: rotation aug changes "
                       "surf_ncs/edge_ncs every epoch (dataset.py:322,499)")
 
@@ -118,7 +140,11 @@ def get_args(argv=None):
     p.add_argument("--assembly", choices=("batched", "per_sample"), default="batched",
                    help="host batch assembly: one vectorized call per batch (default; "
                         "same draws as per-sample) or the per-sample path")
-    p.add_argument("--dp", action="store_true", help=f"data parallel {NOT_PORTED}")
+    p.add_argument("--dp", action="store_true",
+                   help=f"data parallel over the ranks of a torchrun launch ({TORCHRUN_HINT}); "
+                        "--batch_size is the global batch")
+    p.add_argument("--log_every", type=int, default=10,
+                   help="log the step's metrics every N steps (the JAX CLI's 10)")
     p.add_argument("--resume", action="store_true",
                    help=f"resume from <save_dir>/{RESUME_FILE} if present")
     p.add_argument("--seed", type=int, default=0)
@@ -130,12 +156,26 @@ def get_args(argv=None):
 
 
 def refuse_unported(args) -> None:
-    """Exit with a message for an option that waits for a later slice or
-    that the reference refuses; it never falls back silently."""
-    if args.dp:
-        raise SystemExit(f"ldm_main: --dp {NOT_PORTED}")
+    """Exit with a message for options that cannot run as given (the
+    reference refuses them too, or they need a torchrun launch); it never
+    falls back silently."""
     if args.cache_latents and args.data_aug:
         raise SystemExit(CACHE_NEEDS_NO_AUG)
+    if args.dp and not launched():
+        raise SystemExit(DP_NEEDS_TORCHRUN)
+
+
+def join_group(args) -> Optional[RowSplit]:
+    """Under ``--dp``, join torchrun's process group; this rank's split of
+    the batch, or None without ``--dp``."""
+    if not args.dp:
+        return None
+    maybe_initialize_distributed(device=args.device)
+    split = RowSplit.of_group()
+    if args.batch_size % split.world:
+        raise SystemExit(f"ldm_main: --batch_size {args.batch_size} does not divide among "
+                         f"{split.world} ranks")
+    return split
 
 
 def remat_of(args):
@@ -259,6 +299,10 @@ class TrainRun:
 def train(args) -> TrainRun:
     refuse_unported(args)
     device = resolve_device(args.device)
+    split = join_group(args)
+    main_rank = split is None or split.rank == 0
+    if split is not None and device.type == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())
     os.makedirs(args.save_dir, exist_ok=True)
     compute_dtype = torch.bfloat16 if args.bf16 else None
     remat = remat_of(args)
@@ -269,6 +313,14 @@ def train(args) -> TrainRun:
     model = seed_weights(model, init_gen).to(device)
     tables = make_ddpm_tables()
     state = TrainState(model, make_ldm_optimizer(model.parameters()))
+    net = model
+    if split is not None:
+        # this rank's dropout rows; DDP averages the gradients (a parameter
+        # without one raises: find_unused_parameters is off)
+        model.encoder.row_split = split
+        net = torch.nn.parallel.DistributedDataParallel(
+            model, device_ids=[device.index] if device.type == "cuda" else None,
+            find_unused_parameters=False)
 
     surf_encode = edge_encode = None
     if args.option in ("surfz", "edgepos", "edgez"):
@@ -282,8 +334,8 @@ def train(args) -> TrainRun:
         load_resume(resume, state, {"train": generator})
         print(f"resumed from step {state.step}")
 
-    step_fn = ldm_train.make_step(args.option, model, tables, surf_encode, edge_encode,
-                                  args.cf, compute_dtype)
+    step_fn = ldm_train.make_step(args.option, net, tables, surf_encode, edge_encode,
+                                  args.cf, compute_dtype, split)
     val_step = ldm_train.make_val_step(args.option, model, tables, surf_encode, edge_encode,
                                        compute_dtype)
 
@@ -292,11 +344,14 @@ def train(args) -> TrainRun:
     assemble, batch_assemble = make_assemble_fn(args), make_batch_assemble_fn(args)
     batcher = Batcher(train_samples, assemble, args.batch_size, seed=args.seed,
                       class_labels=train_labels, num_workers=args.num_workers,
-                      batch_assemble_fn=batch_assemble)
-    val_batcher = Batcher(val_samples, assemble,
-                          min(args.batch_size, max(len(val_samples), 1)), seed=args.seed,
+                      batch_assemble_fn=batch_assemble, row_split=split)
+    val_batch = min(args.batch_size, max(len(val_samples), 1))
+    val_batcher = Batcher(val_samples, assemble, val_batch, seed=args.seed,
                           class_labels=val_labels, drop_last=False,
-                          batch_assemble_fn=batch_assemble)
+                          batch_assemble_fn=batch_assemble, row_split=split)
+    # the rows of each validation batch across all ranks
+    val_rows = [min(val_batch, len(val_samples) - i) for i in range(0, len(val_samples),
+                                                                     val_batch)]
     val_ts = (ldm_train.VAL_STEPS_SURF if args.option in ("surfpos", "surfz")
               else ldm_train.VAL_STEPS_EDGE)
     run = TrainRun(state)
@@ -306,7 +361,7 @@ def train(args) -> TrainRun:
         if edge_encode is not None:
             run.edge_cache = LatentCache(edge_encode, (32, 3), 12, bucket, device)
         print("latent cache enabled (frozen-VAE encodes hoisted off the step)")
-    if args.profile is not None:
+    if args.profile is not None and main_rank:
         run.trace = StepTrace(args.profile)
 
     def batches(b):
@@ -319,26 +374,41 @@ def train(args) -> TrainRun:
         metrics = {}
         for t_fixed in val_ts:
             total = count = 0.0
-            for batch in prefetch_to_device(batches(val_batcher), device):
-                s, c = val_step(batch, t_fixed, generator)
+            for rows, batch in zip(val_rows, prefetch_to_device(batches(val_batcher), device)):
+                if split is None:
+                    s, c = val_step(batch, t_fixed, generator)
+                else:  # the global batch's noise, this rank's rows
+                    noise = torch.randn(ldm_train.target_shape(
+                        args.option, rows, args.max_face, args.max_edge), generator=generator)
+                    if not batch:
+                        continue
+                    s, c = val_step(batch, t_fixed, noise=split.take(noise))
                 total += float(s)
                 count += float(c)
                 run.val_calls += 1
+            if split is not None:
+                total, count = all_reduce_sum(torch.tensor(
+                    [total, count], dtype=torch.float64, device=device)).tolist()
             metrics[f"Val-{t_fixed:03d}"] = total / max(count, 1.0)
-        print(f"step {state.step}: {metrics}", flush=True)
+        if main_rank:
+            print(f"step {state.step}: {metrics}", flush=True)
         return metrics
 
     try:
-        with MetricsLogger(args.save_dir, args.env) as logger:
+        with (MetricsLogger(args.save_dir, args.env) if main_rank else NullLogger()) as logger:
             run.metrics_path = logger.path
             t0 = time.perf_counter()
             run_training(step_fn, epoch_iter, state, epochs=args.train_nepoch,
                          generator=generator, logger=logger, ckpt_dir=args.save_dir,
                          val_fn=val_fn if len(val_samples) else None,
                          test_nepoch=args.test_nepoch, save_nepoch=args.save_nepoch,
-                         trace=run.trace)
-            print(f"trained {args.option}: {state.step} steps in "
-                  f"{time.perf_counter() - t0:.2f} s; metrics in {logger.path}", flush=True)
+                         log_every=args.log_every, trace=run.trace)
+            if main_rank:
+                ranks = "" if split is None else f" on each of {split.world} ranks"
+                print(f"trained {args.option}: {state.step} steps and {run.val_calls} "
+                      f"validation calls in {time.perf_counter() - t0:.2f} s; metrics in "
+                      f"{logger.path}; kernel launches{ranks} {json.dumps(dict(LAUNCH_COUNTS))}",
+                      flush=True)
     finally:
         batcher.close()
         val_batcher.close()
@@ -346,7 +416,12 @@ def train(args) -> TrainRun:
 
 
 def main(argv: Optional[List[str]] = None) -> TrainState:
-    return train(get_args(argv)).state
+    args = get_args(argv)
+    try:
+        return train(args).state
+    finally:
+        if args.dp and torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -18,7 +18,7 @@ Differences from the reference: the widths come from the packs
 took bf16 on any accelerator; on the card each stage replays a CUDA graph
 (``sampling/aot.py``) and ``--aot_cache DIR`` receives the graphs'
 manifest; each batch's noise comes from a ``torch.Generator`` seeded with
-the reference's seed (5000 + batch; under
+the reference's seed (``--seed``, 5000, + batch; under
 ``--cf`` 5000 + 100 class + 1000 int(10 w) + batch), and since torch cannot
 replay JAX's PRNG the draws differ from the reference's: compare the
 distributions, not the samples. Samples are post-processed in a pool of
@@ -74,6 +74,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--cfg_weights", type=float, nargs="+", default=[0.6],
                    help="guidance weights under --cf (reference w=0.6)")
     p.add_argument("--bf16", action="store_true")
+    p.add_argument("--seed", type=int, default=SEED,
+                   help=f"base of the batches' seeds (the reference's {SEED}); another value "
+                        "draws another set of samples")
     p.add_argument("--aot_cache", default=None,
                    help="DIR for the graphs.json manifest of the stages' CUDA graphs (on the "
                         "card each stage's denoiser call replays one; needs a CUDA card)")
@@ -178,7 +181,7 @@ def run(args: argparse.Namespace, batch_size: int = BATCH,
                 folder = os.path.join(args.out, f"w{w:g}", CLASS_NAMES[cls])
                 batches = generate(
                     cascade(use_cf=True, class_label=cls, cfg_weight=w), args.sample_batches,
-                    SEED + 100 * cls + int(w * 10) * 1000,
+                    args.seed + 100 * cls + int(w * 10) * 1000,
                     os.path.join(folder, "batches.npz") if args.dump else None)
                 for z_thr in args.z_thresholds:
                     lines.append(postprocess(batches, z_thr, folder, decoders, args.recover,
@@ -188,7 +191,7 @@ def run(args: argparse.Namespace, batch_size: int = BATCH,
     if args.from_dump:
         batches = load_dump(args.from_dump)
     else:
-        batches = generate(cascade(), args.sample_batches, SEED,
+        batches = generate(cascade(), args.sample_batches, args.seed,
                            os.path.join(args.out, "batches.npz") if args.dump else None)
     for z_thr in args.z_thresholds:
         lines.append(postprocess(batches, z_thr, os.path.join(args.out, f"z{z_thr}"),

@@ -22,6 +22,15 @@ semantics reject is retried through the recovery ladder. ``--num_samples N``
 stops after N valid B-reps (the JAX CLI's meaning). The raw batches also go
 to ``<save_folder>/batches.npz`` as ``{key}__{batch}`` arrays, the format
 ``scripts/replay_postprocess.py`` reads.
+
+Split sampling, the counterpart of the JAX CLI's mesh over several devices:
+started by ``torchrun --nproc_per_node N`` (one card a rank, NCCL), each
+rank runs the cascade on its B/N rows of every batch (``sampling/cascade.py``
+says how the draws stay those of one process), post-processes its own
+samples, names them by their index in the global batch, and rank 0 writes
+the global ``batches.npz`` and prints the counts summed over the ranks.
+``--batch_size`` (or the preset's) is the global batch and must divide
+among the ranks, where the JAX CLI would silently run unsharded.
 """
 
 from __future__ import annotations
@@ -48,9 +57,11 @@ from brepgen_tpu_torch.cli.build import (
 )
 from brepgen_tpu_torch.geometry.brep_build import construct_brep
 from brepgen_tpu_torch.nn.layers import cast_compute
+from brepgen_tpu_torch.parallel.distributed import RowSplit, all_reduce_sum, launched, \
+    maybe_initialize_distributed
 from brepgen_tpu_torch.postprocess.pipeline import make_padded_decoder, postprocess_single
 from brepgen_tpu_torch.postprocess.vertex_merge import PostprocessError
-from brepgen_tpu_torch.sampling import Cascade, CascadeConfig, GeneratorNoise
+from brepgen_tpu_torch.sampling import Cascade, CascadeConfig, GeneratorNoise, RowNoise
 from brepgen_tpu_torch.sampling.aot import MANIFEST, StageGraphs, stage_graphs
 from brepgen_tpu_torch.utils.profiling import TRACE_FILE, device_trace, format_summary, \
     summarize_trace
@@ -107,17 +118,25 @@ def init_cascade(mode: str = "abc", weights_dir: Optional[str] = None, seed: int
                  batch_size: Optional[int] = None, dtype: torch.dtype = torch.float32,
                  device: str = "cuda", step_overrides: Optional[Dict] = None,
                  config: Optional[str] = None, small: bool = False,
-                 aot_cache: Optional[str] = None) -> Cascade:
+                 aot_cache: Optional[str] = None, row_split: Optional[RowSplit] = None
+                 ) -> Cascade:
     """The cascade for ``mode`` on the models of ``load_models``. The mode's
     preset, overridden by the file ``config`` (``eval_config_tpu.yaml``'s
     form) where given, sets the sizes, thresholds, class label and batch
     size; ``batch_size`` and ``step_overrides`` override both. On a CUDA
     card each stage's denoiser calls replay a CUDA graph, whose manifest
-    goes to ``aot_cache``."""
+    goes to ``aot_cache``. With ``row_split`` the batch size is the global
+    batch and the cascade runs this rank's share of it."""
     config = CascadeConfig.for_mode(mode, batch_size=batch_size, config=config,
                                     **(step_overrides or {}))
+    if row_split is not None:
+        if config.batch_size % row_split.world:
+            raise ValueError(f"batch size {config.batch_size} does not divide among "
+                             f"{row_split.world} ranks")
+        config = dataclasses.replace(config, batch_size=config.batch_size // row_split.world)
     models = load_models(config.use_cf, weights_dir, seed, dtype, device, small)
-    return Cascade(*models, config, graphs=stage_graphs(resolve_device(device), aot_cache))
+    return Cascade(*models, config, graphs=stage_graphs(resolve_device(device), aot_cache),
+                   row_split=row_split)
 
 
 def random_string(length=15):
@@ -133,8 +152,10 @@ def host_decoders(cascade: Cascade):
 
 
 def process_one(sample_np, batch_idx, surf_decode, edge_decode, z_threshold, save_folder,
-                recovery=False, device: str | torch.device = "cuda"):
-    """Postprocess + assemble one sample. With ``recovery``, a sample the
+                recovery=False, device: str | torch.device = "cuda",
+                name_index: Optional[int] = None):
+    """Postprocess + assemble one sample, written under ``<random>_<index>``
+    (``name_index``, by default ``batch_idx``). With ``recovery``, a sample the
     strict reference semantics would reject is retried through the
     edge-pairing recovery ladder (postprocess/edge_merge.py); a rescued
     sample returns its name with a "recovered: rung N" note instead of
@@ -161,7 +182,7 @@ def process_one(sample_np, batch_idx, surf_decode, edge_decode, z_threshold, sav
         )
     except Exception as e:  # noqa: BLE001 -- parity with reference's skip
         return None, f"brep rebuild failed: {e}"
-    name = f"{random_string()}_{batch_idx}"
+    name = f"{random_string()}_{batch_idx if name_index is None else name_index}"
     solid.write_step(os.path.join(save_folder, name + ".step"))
     solid.write_stl(os.path.join(save_folder, name + ".stl"))
     if not solid.topology_ok():
@@ -202,6 +223,16 @@ class SampleRun:
         if parts[0].startswith("recovered"):
             self.rungs[parts[0]] = self.rungs.get(parts[0], 0) + 1
 
+    def merge(self, other: "SampleRun") -> None:
+        """Add ``other``'s counts to this run's (its batches are not added)."""
+        self.attempted += other.attempted
+        self.names += other.names
+        self.strict += other.strict
+        self.solid += other.solid
+        for mine, theirs in ((self.failures, other.failures), (self.rungs, other.rungs)):
+            for k, v in theirs.items():
+                mine[k] = mine.get(k, 0) + v
+
     def report(self) -> str:
         lines = [f"produced {self.produced}/{self.attempted} valid B-reps from "
                  f"{len(self.batches)} batches (strict {self.strict}, recovered "
@@ -225,7 +256,13 @@ def sample_loop(cascade: Cascade, num_samples: int = 0, max_batches: int = 0, se
     to ``batches.npz`` there. ``postprocess=False`` runs the cascade alone
     and then counts raw samples against ``num_samples``. With
     ``profile_dir`` the second batch (the first captures or warms up) is
-    traced into ``profile_dir/trace.json`` and its summary printed."""
+    traced into ``profile_dir/trace.json`` and its summary printed.
+
+    A cascade with a ``row_split`` is one rank's share of split sampling:
+    every rank calls this with the same arguments, stops at the same batch
+    (the counts are summed over the ranks), and returns the counts and
+    batches of all ranks (rank 0 writes ``batches.npz``)."""
+    split = getattr(cascade, "row_split", None)
     if postprocess and not save_folder:
         raise ValueError("sample_loop: postprocess writes STEP/STL and needs a save_folder")
     if save_folder:
@@ -233,6 +270,10 @@ def sample_loop(cascade: Cascade, num_samples: int = 0, max_batches: int = 0, se
     gen = torch.Generator(device=cascade.device).manual_seed(seed)
     noise = GeneratorNoise(gen)
     B = cascade.cfg.batch_size
+    first = 0
+    if split is not None:
+        noise = RowNoise(noise, split)
+        first = split.rank * B  # global index of this rank's first row
     run = SampleRun(batches=[])
     surf_decode, edge_decode = host_decoders(cascade)
     t0 = time.perf_counter()
@@ -258,10 +299,12 @@ def sample_loop(cascade: Cascade, num_samples: int = 0, max_batches: int = 0, se
                 # host postprocess of batch k overlaps the cascade of batch k + 1
                 pending += [pool.submit(process_one, sample_np, b, surf_decode, edge_decode,
                                         cascade.cfg.z_threshold, save_folder, recovery,
-                                        cascade.device) for b in range(B)]
+                                        cascade.device, first + b) for b in range(B)]
                 run.attempted += B
                 collect([f for f in pending if f.done()])
             count = run.produced if postprocess else len(run.batches) * B
+            if split is not None:  # every rank stops at the same batch
+                count = int(all_reduce_sum(torch.tensor([count], device=cascade.device)).item())
             if (num_samples and count >= num_samples) or (
                     max_batches and len(run.batches) >= max_batches):
                 break
@@ -272,12 +315,28 @@ def sample_loop(cascade: Cascade, num_samples: int = 0, max_batches: int = 0, se
                 collect(wait(pending, return_when=FIRST_COMPLETED).done)
         collect(list(pending))
     run.seconds = time.perf_counter() - t0
-    if save_folder:
+    if split is not None:
+        run = gather_runs(run)
+    if save_folder and (split is None or split.rank == 0):
         np.savez_compressed(
             os.path.join(save_folder, "batches.npz"),
             **{f"{k}__{bi}": v for bi, b in enumerate(run.batches) for k, v in b.items()},
         )
     return run
+
+
+def gather_runs(run: SampleRun) -> SampleRun:
+    """Every rank's run merged, on every rank: counts summed, names in rank
+    order, each batch the ranks' rows concatenated in rank order (the global
+    batch)."""
+    runs: List[Optional[SampleRun]] = [None] * torch.distributed.get_world_size()
+    torch.distributed.all_gather_object(runs, run)
+    merged = SampleRun(batches=[{k: np.concatenate([r.batches[i][k] for r in runs])
+                                 for k in run.batches[i]} for i in range(len(run.batches))],
+                       seconds=max(r.seconds for r in runs))
+    for r in runs:
+        merged.merge(r)
+    return merged
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -330,26 +389,46 @@ def parse_args(argv=None) -> argparse.Namespace:
     return args
 
 
-def cascade_from_args(args: argparse.Namespace) -> Cascade:
-    """The cascade the command line asks for."""
+def cascade_from_args(args: argparse.Namespace, row_split: Optional[RowSplit] = None
+                      ) -> Cascade:
+    """The cascade the command line asks for (this rank's share under a
+    ``row_split``)."""
     overrides = {k: getattr(args, k)
                  for k in ("pndm_steps", "pos_pndm_calls", "ddpm_tail", "fast_steps")
                  if getattr(args, k) is not None}
     if args.compact:
         overrides["compact"] = True
+    main_rank = row_split is None or row_split.rank == 0
     return init_cascade(args.mode, args.weights_dir, args.seed, args.batch_size,
                         torch.bfloat16 if args.bf16 else torch.float32, args.device,
-                        overrides, args.config, args.small, args.aot_cache)
+                        overrides, args.config, args.small,
+                        args.aot_cache if main_rank else None, row_split)
 
 
 def main(argv=None):
     args = parse_args(argv)
-    cascade = cascade_from_args(args)
+    split = None
+    if launched():  # split sampling over torchrun's ranks
+        maybe_initialize_distributed(device=args.device)
+        split = RowSplit.of_group()
+        print(f"rank {split.rank} of {split.world}: split sampling", flush=True)
+    try:
+        _run(args, split)
+    finally:
+        if split is not None:
+            torch.distributed.destroy_process_group()
+
+
+def _run(args, split: Optional[RowSplit]) -> None:
+    main_rank = split is None or split.rank == 0
+    cascade = cascade_from_args(args, split)
     stage_times: Dict[str, float] = {}
     run = sample_loop(cascade, args.num_samples, args.max_batches, args.seed,
                       args.save_folder or f"samples_{args.mode}", stage_times,
                       recovery=not args.strict, workers=args.workers,
-                      profile_dir=args.profile)
+                      profile_dir=args.profile if main_rank else None)
+    if not main_rank:
+        return
     print(run.report())
     if cascade.cfg.compact:
         print(f"edge stages of the last batch on {cascade.last_bucket} of "

@@ -71,6 +71,12 @@ class Batcher:
     with one vectorized call per batch — same distributions, exact same
     per-(sample, seed) draws — and the worker pool is not used (the
     vectorized path is faster than per-sample assembly on any core count).
+
+    row_split (a ``parallel.distributed.RowSplit``): ``batch_size`` is the
+    global batch and this rank assembles only its rows of each batch, with
+    the seeds the global batch gives them (every rank draws the same order
+    and seeds), so the ranks' union is the single-process batch; a rank whose
+    share of a short last batch is empty gets ``()``.
     """
 
     def __init__(
@@ -84,8 +90,10 @@ class Batcher:
         num_workers: int = 0,
         clamp_to_cpus: bool = True,
         batch_assemble_fn: Optional[Callable] = None,
+        row_split=None,
     ):
         self.samples = list(samples)
+        self.row_split = row_split
         self.assemble_fn = assemble_fn
         self.batch_assemble_fn = batch_assemble_fn
         if batch_assemble_fn is not None:
@@ -151,6 +159,11 @@ class Batcher:
             if self.drop_last and len(idxs) < self.batch_size:
                 break
             batch_seeds = seeds[start : start + len(idxs)]
+            if self.row_split is not None:
+                idxs, batch_seeds = map(self.row_split.take, (idxs, batch_seeds))
+                if not len(idxs):
+                    yield ()
+                    continue
             if self.batch_assemble_fn is not None:
                 batch = self.batch_assemble_fn(
                     [_load(self.samples[i]) for i in idxs], batch_seeds

@@ -21,6 +21,11 @@ included, is recomputed; the kernels are autograd functions whose forward
 reruns in the recompute, so K1 still launches twice per layer. Each layer's
 dropout masks come from a seed drawn before the layer runs, so the recompute
 draws the same masks.
+
+Under data parallelism (``row_split``, a ``parallel.distributed.RowSplit``)
+each rank holds some rows of a global batch: its masks are drawn at the
+global batch's shape and its rows kept, so the ranks' union draws the masks
+of the single-process step (the JAX step draws them so under its mesh).
 """
 
 from __future__ import annotations
@@ -94,10 +99,17 @@ class MultiHeadSelfAttention(nn.Module):
         return self.proj(self.attn(self.qkv(x), self.num_heads, key_padding_mask))
 
 
-def dropout(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator,
+            row_split=None) -> torch.Tensor:
     """Zero each element with probability ``rate`` and scale the rest by
-    1 / (1 - rate), as flax's ``nn.Dropout``; the mask from ``generator``."""
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    1 / (1 - rate), as flax's ``nn.Dropout``; the mask from ``generator``,
+    drawn at the global batch's shape and cut to this rank's rows under a
+    ``row_split``."""
+    if row_split is None:
+        keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    else:
+        shape = (row_split.global_rows(x.shape[0]), *x.shape[1:])
+        keep = row_split.take(torch.rand(shape, generator=generator, device=x.device)) >= rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -112,15 +124,15 @@ class EncoderLayer(nn.Module):
         self.fc1 = nn.Linear(width, ffn_width)
         self.fc2 = nn.Linear(ffn_width, width)
 
-    def forward(self, x, key_padding_mask=None, seed: Optional[int] = None):
+    def forward(self, x, key_padding_mask=None, seed: Optional[int] = None, row_split=None):
         """``seed`` (training) seeds this layer's dropout masks; None runs
-        without dropout."""
+        without dropout. ``row_split``: see ``dropout``."""
         if seed is None or self.dropout == 0.0:
             drop = lambda h: h  # noqa: E731
         else:
             gen = torch.Generator(device=x.device)
             gen.manual_seed(seed)
-            drop = lambda h: dropout(h, self.dropout, gen)  # noqa: E731
+            drop = lambda h: dropout(h, self.dropout, gen, row_split)  # noqa: E731
         x = x + drop(self.attn(self.norm1(x), key_padding_mask))
         return x + drop(self.fc2(drop(F.relu(self.fc1(self.norm2(x))))))
 
@@ -150,6 +162,7 @@ class TransformerEncoder(nn.Module):
         self.num_layers = num_layers
         self.dropout = dropout
         self.remat = "dots" if remat == "dots" else bool(remat)
+        self.row_split = None  # this rank's rows of the batch (data-parallel training)
         for i in range(num_layers):  # attribute names are the flax scopes
             setattr(self, f"layer_{i}",
                     EncoderLayer(width, num_heads, ffn_width, attn_impl, dropout))
@@ -174,7 +187,7 @@ class TransformerEncoder(nn.Module):
                     kw["context_fn"] = functools.partial(
                         torch.utils.checkpoint.create_selective_checkpoint_contexts, dots_policy)
                 x = torch.utils.checkpoint.checkpoint(layer, x, key_padding_mask, seed,
-                                                      use_reentrant=False, **kw)
+                                                      self.row_split, use_reentrant=False, **kw)
             else:
-                x = layer(x, key_padding_mask, seed)
+                x = layer(x, key_padding_mask, seed, self.row_split)
         return self.final_norm(x)

@@ -20,6 +20,15 @@ one Python loop; with ``graphs`` each denoiser call in it replays a CUDA
 graph of its stage (``sampling/aot.py``). Every noise draw goes through one
 noise source, which the caller can replace (the tests hand it the JAX
 package's draws).
+
+Split sampling (the counterpart of the JAX cascade sharded over the mesh's
+``data`` axis): under a process group each rank runs a cascade whose
+``batch_size`` is its share of the global batch, with a ``row_split``; its
+noise source (``RowNoise``) draws every site at the global batch's shape
+from the shared seed and keeps the rank's rows, and compaction takes the
+largest kept-face count of any rank (one all-reduce), so every rank uses the
+bucket, and hence the tail draws, of the single-process batch. The ranks'
+rows together are then the single-process batch.
 """
 
 from __future__ import annotations
@@ -42,6 +51,7 @@ from brepgen_tpu_torch.diffusion import (
     slice_plan,
 )
 from brepgen_tpu_torch.nn.denoiser import broadcast_face_to_edge, flatten_face_edge
+from brepgen_tpu_torch.parallel.distributed import all_reduce_max
 from brepgen_tpu_torch.sampling.aot import StageGraphs
 from brepgen_tpu_torch.sampling.dedup import dedup_bboxes, dedup_edges_per_face
 
@@ -209,16 +219,33 @@ class GeneratorNoise:
         return torch.randn(tuple(shape), generator=self.generator, device=self.generator.device)
 
 
+class RowNoise:
+    """A noise source for one rank's rows: ``noise`` draws each site at the
+    global batch's shape and this rank's rows (``row_split``, a
+    ``parallel.distributed.RowSplit`` of equal shares) are returned."""
+
+    def __init__(self, noise: Callable, row_split):
+        self.noise, self.row_split = noise, row_split
+
+    def __call__(self, site: str, shape, step: Optional[int] = None) -> torch.Tensor:
+        full = (self.row_split.global_rows(shape[0]), *shape[1:])
+        return self.row_split.take(self.noise(site, full, step))
+
+
 class Cascade:
     """``Cascade(nets, surf_vae, edge_vae, config)(noise)`` -> dict of tensors.
 
     With ``graphs`` (``sampling/aot.py``; the entry points give it one on a
     CUDA card) every denoiser call replays a CUDA graph of its stage,
-    captured at its first call; without, it runs eagerly."""
+    captured at its first call; without, it runs eagerly. With ``row_split``
+    it is one rank's share of a split batch (the module's docstring); its
+    ``batch_size`` is the rank's rows."""
 
     def __init__(self, nets: Dict[str, torch.nn.Module], surf_vae, edge_vae,
-                 config: CascadeConfig, graphs: Optional[StageGraphs] = None):
+                 config: CascadeConfig, graphs: Optional[StageGraphs] = None,
+                 row_split=None):
         self.nets = nets
+        self.row_split = row_split
         self.surf_vae = surf_vae
         self.edge_vae = edge_vae
         self.cfg = config
@@ -363,13 +390,15 @@ class Cascade:
     def compact_bucket(self, surf_keep: torch.Tensor) -> int:
         """Face slots the edge stages run on: every slot, or with ``compact``
         the most kept faces of any sample rounded up to the granularity (a
-        host sync)."""
+        host sync; of any rank's sample under a ``row_split``)."""
         cfg = self.cfg
         ns = surf_keep.shape[1]
         if not cfg.compact:
             return ns
         g = cfg.compact_granularity
         count = int(surf_keep.sum(dim=1).max())
+        if self.row_split is not None:
+            count = all_reduce_max(count, surf_keep.device)
         return min(ns, max(g, -(-count // g) * g))
 
     def s_decode(self, surfz, edgezv):

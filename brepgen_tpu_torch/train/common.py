@@ -21,6 +21,8 @@ from typing import Iterable
 import torch
 from torch import nn
 
+from brepgen_tpu_torch.parallel.distributed import all_reduce_sum
+
 
 class ClippedAdamW:
     """Global-norm clip, then AdamW, over ``params``."""
@@ -78,11 +80,36 @@ class TrainState:
     step: int = 0
 
 
-def masked_mse(pred: torch.Tensor, target: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+def masked_mse(pred: torch.Tensor, target: torch.Tensor, mask: torch.Tensor,
+               row_split=None) -> torch.Tensor:
     """Mean squared error over the elements of unmasked tokens; ``mask`` is
-    True at padding, broadcast over trailing feature dims."""
+    True at padding, broadcast over trailing feature dims.
+
+    Under data parallelism (``row_split``, this rank's rows of the batch)
+    the mean is the global batch's: the count of unmasked elements is
+    summed over the ranks (no gradient flows through it) and the rank's sum
+    of squares is divided by it and multiplied by the world size, so that
+    DistributedDataParallel's average of the ranks' gradients is the
+    gradient of the global mean. Ranks hold different counts of valid
+    tokens, so the average of per-rank means would not be. The value is
+    this rank's share times the world size: ``global_mean`` turns it into
+    the global mean for logging."""
     w = (~mask).float()
     while w.dim() < pred.dim():
         w = w[..., None]
     se = (pred - target) ** 2 * w
-    return se.sum() / torch.clamp((w * torch.ones_like(pred)).sum(), min=1.0)
+    count = (w * torch.ones_like(pred)).sum()
+    if row_split is None:
+        return se.sum() / torch.clamp(count, min=1.0)
+    count = all_reduce_sum(count.detach())
+    return se.sum() / torch.clamp(count, min=1.0) * row_split.world
+
+
+def global_mean(loss: torch.Tensor, row_split=None) -> torch.Tensor:
+    """The logged value of a rank's loss: under data parallelism the mean
+    over the ranks of what each rank's loss is (a global mean for
+    ``masked_mse``'s scaled shares, and for per-rank means of equal shares)."""
+    loss = loss.detach()
+    if row_split is None:
+        return loss
+    return all_reduce_sum(loss.clone()) / row_split.world

@@ -17,6 +17,13 @@ the same generator. ``compute_dtype=torch.bfloat16`` runs the encodes and the
 denoiser under ``torch.autocast`` (bf16 compute over f32 parameters and
 optimizer state, as the JAX ``--bf16``); losses are taken in f32.
 
+Under data parallelism (``row_split``, a ``parallel.distributed.RowSplit``)
+the batch holds this rank's rows of the global batch: the step draws what
+the global batch draws and keeps its rows, its masked losses are the global
+batch's (``common.masked_mse``) and the metrics it returns are global, so
+the ranks together take the single-process step. ``model`` is then the
+``DistributedDataParallel`` wrapper, which averages the gradients.
+
 Batch convention: dict of tensors on the training device with keys (per
 stage) surfpos [B,nf,6], surfpnt [B,nf,32,32,3], surf_mask [B,nf],
 edgepos [B,nf,ne,6], edgepnt [B,nf,ne,32,3], edge_mask [B,nf,ne],
@@ -32,9 +39,10 @@ import torch
 
 from brepgen_tpu_torch.diffusion.ddpm import DDPMTables, add_noise
 from brepgen_tpu_torch.nn.denoiser import broadcast_face_to_edge, flatten_face_edge
-from brepgen_tpu_torch.train.common import TrainState, masked_mse
+from brepgen_tpu_torch.train.common import TrainState, global_mean, masked_mse
 
 AUG_MAX_T = 15
+TARGET_DIMS = {"surfpos": 6, "surfz": 48, "edgepos": 6, "edgez": 18}
 VAL_STEPS_SURF = (10, 50, 100, 200, 500)
 VAL_STEPS_EDGE = (10, 50, 100)
 
@@ -56,6 +64,20 @@ def draw_step(generator: torch.Generator, tables: DDPMTables, target_shape: Sequ
     if use_cf:
         draws["cfg_u"] = torch.rand((B,), generator=generator)
     return draws
+
+
+def take_rows(draws: Draws, row_split) -> Draws:
+    """This rank's rows of every draw of ``draw_step``."""
+    out = {k: row_split.take(v) for k, v in draws.items() if k != "aug"}
+    out["aug"] = [(row_split.take(t), row_split.take(n)) for t, n in draws["aug"]]
+    return out
+
+
+def target_shape(stage: str, rows: int, max_face: int, max_edge: int):
+    """The shape of the noised target of ``stage`` for ``rows`` samples."""
+    if stage.startswith("surf"):
+        return (rows, max_face, TARGET_DIMS[stage])
+    return (rows, max_face, max_edge, TARGET_DIMS[stage])
 
 
 def autocast(device: torch.device, compute_dtype: Optional[torch.dtype]):
@@ -106,10 +128,11 @@ class _Stage:
     denoiser call in train mode."""
 
     def __init__(self, model, tables, surf_encode=None, edge_encode=None, use_cf=False,
-                 compute_dtype=None):
+                 compute_dtype=None, row_split=None):
         self.model, self.tables = model, tables
         self.surf_encode, self.edge_encode = surf_encode, edge_encode
         self.use_cf, self.compute_dtype = use_cf, compute_dtype
+        self.row_split = row_split
 
     def latents(self, batch):
         device = next(iter(batch.values())).device
@@ -117,10 +140,22 @@ class _Stage:
             return _latents(batch, self.surf_encode, self.edge_encode)
 
     def draws(self, draws, generator, target, conds):
-        if draws is None:
-            draws = draw_step(generator, self.tables, target.shape, [c.shape for c in conds],
-                              self.use_cf)
-        return draws
+        if draws is not None:
+            return draws
+        split = self.row_split
+
+        def whole(shape):  # the global batch's shape of a rank's tensor
+            return shape if split is None else (split.global_rows(shape[0]), *shape[1:])
+
+        draws = draw_step(generator, self.tables, whole(target.shape),
+                          [whole(c.shape) for c in conds], self.use_cf)
+        return draws if split is None else take_rows(draws, split)
+
+    def mse(self, pred, target, mask):
+        return masked_mse(pred, target, mask, self.row_split)
+
+    def metrics(self, **losses):
+        return {k: global_mean(v, self.row_split) for k, v in losses.items()}
 
     def noised(self, x0, draws):
         t = draws["t"].to(x0.device)
@@ -133,23 +168,26 @@ class _Stage:
                               generator=generator, label_u=draws.get("cfg_u"))
 
 
-def make_surfpos_step(model, tables: DDPMTables, use_cf: bool = False, compute_dtype=None):
-    st = _Stage(model, tables, use_cf=use_cf, compute_dtype=compute_dtype)
+def make_surfpos_step(model, tables: DDPMTables, use_cf: bool = False, compute_dtype=None,
+                      row_split=None):
+    st = _Stage(model, tables, use_cf=use_cf, compute_dtype=compute_dtype, row_split=row_split)
 
     def step(state: TrainState, batch, generator=None, draws: Optional[Draws] = None):
         x = batch["surfpos"]
         draws = st.draws(draws, generator, x, [])
         x_t, noise, t = st.noised(x, draws)
         pred = st.predict((x_t,), t, None, batch, generator, draws)
-        loss = torch.mean((pred - noise) ** 2)
+        loss = torch.mean((pred - noise) ** 2)  # equal shares: DDP's average is the global mean
         _update(state, loss)
-        return {"loss": loss.detach()}
+        return st.metrics(loss=loss)
 
     return step
 
 
-def make_surfz_step(model, tables: DDPMTables, surf_encode, use_cf=False, compute_dtype=None):
-    st = _Stage(model, tables, surf_encode, use_cf=use_cf, compute_dtype=compute_dtype)
+def make_surfz_step(model, tables: DDPMTables, surf_encode, use_cf=False, compute_dtype=None,
+                    row_split=None):
+    st = _Stage(model, tables, surf_encode, use_cf=use_cf, compute_dtype=compute_dtype,
+                row_split=row_split)
 
     def step(state: TrainState, batch, generator=None, draws: Optional[Draws] = None):
         mask = batch["surf_mask"]
@@ -158,15 +196,17 @@ def make_surfz_step(model, tables: DDPMTables, surf_encode, use_cf=False, comput
         surfpos = _augment(tables, batch["surfpos"], draws["aug"][0])
         x_t, noise, t = st.noised(surfz, draws)
         pred = st.predict((x_t, surfpos), t, mask, batch, generator, draws)
-        loss = masked_mse(pred, noise, mask)
+        loss = st.mse(pred, noise, mask)
         _update(state, loss)
-        return {"loss": loss.detach()}
+        return st.metrics(loss=loss)
 
     return step
 
 
-def make_edgepos_step(model, tables: DDPMTables, surf_encode, use_cf=False, compute_dtype=None):
-    st = _Stage(model, tables, surf_encode, use_cf=use_cf, compute_dtype=compute_dtype)
+def make_edgepos_step(model, tables: DDPMTables, surf_encode, use_cf=False, compute_dtype=None,
+                      row_split=None):
+    st = _Stage(model, tables, surf_encode, use_cf=use_cf, compute_dtype=compute_dtype,
+                row_split=row_split)
 
     def step(state: TrainState, batch, generator=None, draws: Optional[Draws] = None):
         edgepos, mask = batch["edgepos"], batch["surf_mask"]  # [B, nf, ne, 6], [B, nf]
@@ -181,16 +221,16 @@ def make_edgepos_step(model, tables: DDPMTables, surf_encode, use_cf=False, comp
         pred = st.predict(streams, t, mask.repeat_interleave(ne, dim=1), batch, generator,
                           draws).reshape(B, nf, ne, 6)
         # loss over valid faces (all their edge slots), reference trainer.py:732
-        loss = masked_mse(pred, noise, mask[:, :, None].expand(B, nf, ne))
+        loss = st.mse(pred, noise, mask[:, :, None].expand(B, nf, ne))
         _update(state, loss)
-        return {"loss": loss.detach()}
+        return st.metrics(loss=loss)
 
     return step
 
 
 def make_edgez_step(model, tables: DDPMTables, surf_encode, edge_encode, use_cf=False,
-                    compute_dtype=None):
-    st = _Stage(model, tables, surf_encode, edge_encode, use_cf, compute_dtype)
+                    compute_dtype=None, row_split=None):
+    st = _Stage(model, tables, surf_encode, edge_encode, use_cf, compute_dtype, row_split)
 
     def step(state: TrainState, batch, generator=None, draws: Optional[Draws] = None):
         edgepos, edge_mask = batch["edgepos"], batch["edge_mask"]  # [B,nf,ne,6], [B,nf,ne]
@@ -207,26 +247,27 @@ def make_edgez_step(model, tables: DDPMTables, surf_encode, edge_encode, use_cf=
                    broadcast_face_to_edge(surfz, ne))
         pred = st.predict(streams, t, edge_mask.reshape(B, nf * ne), batch, generator,
                           draws).reshape(B, nf, ne, 18)
-        loss = masked_mse(pred, noise, edge_mask)
-        loss_z = masked_mse(pred[..., :12], noise[..., :12], edge_mask)
-        loss_v = masked_mse(pred[..., 12:], noise[..., 12:], edge_mask)
+        loss = st.mse(pred, noise, edge_mask)
+        loss_z = st.mse(pred[..., :12], noise[..., :12], edge_mask)
+        loss_v = st.mse(pred[..., 12:], noise[..., 12:], edge_mask)
         _update(state, loss)
-        return {"loss": loss.detach(), "loss_z": loss_z.detach(), "loss_v": loss_v.detach()}
+        return st.metrics(loss=loss, loss_z=loss_z, loss_v=loss_v)
 
     return step
 
 
 def make_step(stage: str, model, tables, surf_encode=None, edge_encode=None, use_cf=False,
-              compute_dtype=None):
+              compute_dtype=None, row_split=None):
     """The train step of ``stage``."""
+    kw = dict(compute_dtype=compute_dtype, row_split=row_split)
     if stage == "surfpos":
-        return make_surfpos_step(model, tables, use_cf, compute_dtype)
+        return make_surfpos_step(model, tables, use_cf, **kw)
     if stage == "surfz":
-        return make_surfz_step(model, tables, surf_encode, use_cf, compute_dtype)
+        return make_surfz_step(model, tables, surf_encode, use_cf, **kw)
     if stage == "edgepos":
-        return make_edgepos_step(model, tables, surf_encode, use_cf, compute_dtype)
+        return make_edgepos_step(model, tables, surf_encode, use_cf, **kw)
     if stage == "edgez":
-        return make_edgez_step(model, tables, surf_encode, edge_encode, use_cf, compute_dtype)
+        return make_edgez_step(model, tables, surf_encode, edge_encode, use_cf, **kw)
     raise ValueError(stage)
 
 
@@ -238,7 +279,9 @@ def make_val_step(stage: str, model, tables: DDPMTables, surf_encode=None, edge_
                   compute_dtype=None):
     """fn(batch, t_fixed, generator=None, noise=None) -> (summed token MSE,
     batch size) as f32 tensors, for averaging over the val set; the noise is
-    ``noise`` when given, else from ``generator``."""
+    ``noise`` when given, else from ``generator``. Under data parallelism
+    the caller draws the global batch's noise (``target_shape``), hands each
+    rank its rows and sums the pairs over the ranks."""
 
     @torch.no_grad()
     def val(batch, t_fixed: int, generator: Optional[torch.Generator] = None,

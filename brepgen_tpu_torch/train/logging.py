@@ -30,3 +30,18 @@ class MetricsLogger:
 
     def __exit__(self, *exc):
         self.close()
+
+
+class NullLogger:
+    """A logger that keeps nothing: the ranks other than 0 of a process group."""
+
+    path = ""
+
+    def log(self, metrics: Dict, step: int) -> None:
+        pass
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        pass

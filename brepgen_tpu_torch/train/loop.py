@@ -2,7 +2,9 @@
 and the loops of ``brepgen_tpu/cli/{ldm,vae}_main.py``): train ``epochs``
 epochs, print ms per step over every 100-step window, validate every
 ``test_nepoch``, write ``epoch_N.npz`` every ``save_nepoch`` and at the end,
-with a resume file beside it."""
+with a resume file beside it. Under a process group (data parallelism) rank
+0 alone writes them, from the unwrapped module (npz keys without DDP's
+``module.`` prefix), and every rank waits for the write."""
 
 from __future__ import annotations
 
@@ -12,6 +14,7 @@ from typing import Callable, Dict, Iterable, Optional
 
 import torch
 
+from brepgen_tpu_torch.parallel.distributed import barrier, rank_and_world
 from brepgen_tpu_torch.train.checkpoint import save_params_npz, save_resume
 from brepgen_tpu_torch.train.common import TrainState
 from brepgen_tpu_torch.train.logging import MetricsLogger
@@ -40,7 +43,11 @@ def run_training(
     ``log_every`` steps, which bounds how far the host runs ahead of the
     device in the 100-step windows (the first window holds the warm-up). The
     resume file keeps ``generator``'s state beside the module, optimizer and
-    step. ``trace`` (``--profile``) is told of every step and epoch end."""
+    step. ``trace`` (``--profile``) is told of every step and epoch end.
+    ``state.module`` is the unwrapped module; under a process group pass
+    rank 0 the logger and the others a logger that drops what it is given
+    (the metrics are global), and only rank 0 prints."""
+    main = rank_and_world()[0] == 0
     t_window = None
     for epoch in range(1, epochs + 1):
         t0, step0 = time.perf_counter(), state.step
@@ -54,7 +61,7 @@ def run_training(
                 logger.log({k: float(v) for k, v in metrics.items()}, state.step - 1)
             if state.step % 100 == 0:
                 now = time.perf_counter()
-                if t_window is not None:
+                if t_window is not None and main:
                     dt = (now - t_window) / 100
                     print(f"step {state.step}: {dt * 1e3:.1f} ms/step ({1 / dt:.2f} steps/s)",
                           flush=True)
@@ -68,6 +75,8 @@ def run_training(
         if val_fn is not None and epoch % test_nepoch == 0:
             logger.log(val_fn(state), state.step)
         if epoch % save_nepoch == 0 or epoch == epochs:
-            save_params_npz(ckpt_dir, state.module, f"epoch_{epoch}")
-            save_resume(os.path.join(ckpt_dir, RESUME_FILE), state, {"train": generator})
+            if main:
+                save_params_npz(ckpt_dir, state.module, f"epoch_{epoch}")
+                save_resume(os.path.join(ckpt_dir, RESUME_FILE), state, {"train": generator})
+            barrier()
     return state

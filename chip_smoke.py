@@ -47,8 +47,16 @@ where it holds a solid), 240 of the pipeline's solids are written as STEP,
 extracted back by ``shard_driver`` in four ``process_main`` subprocesses
 (one pkl each, within 5e-2 of the source grids, no failed shard), split,
 deduplicated and trained on by ``ldm_main`` edgez in bf16 with the
-pipeline's VAE packs (K1 and K5 launch counts). The native host library
-(trimming) is built with g++ beside the kernels. It checks shapes,
+pipeline's VAE packs (K1 and K5 launch counts). Phase dp is multi-GPU on
+the one card: ``ldm_main --dp`` under ``torchrun --nproc_per_node 1``
+(NCCL) against the same command without ``--dp`` (equal per-step losses,
+K1/K5 launch counts, a pack without DDP's prefix), then two ranks of this
+script (``--dp_worker``) sharing the card over gloo: one split edgez step
+against one process, split sampling (deepcad; abc compacted on one bucket)
+and the tensor-parallel edgez forward (6 heads a rank through K1) against
+the replicated one, while a reference-layout checkpoint goes through
+``tools/convert_torch.py`` into a pack whose forward equals its source.
+The native host library (trimming) is built with g++ beside the kernels. It checks shapes,
 finiteness, masks, solids, agreement of the compacted and full runs, the
 gradients, and kernel launch counts. Each phase prints one line with its
 seconds. The last lines are one JSON object of kernel measurements and the
@@ -1050,6 +1058,411 @@ def phase_step(torch, np, solids_dir, solid_steps, work, pipeline):
     return out
 
 
+# Phase dp: multi-GPU on the one card. (a) ldm_main --dp under torchrun at
+# world size 1 over NCCL against the same command without --dp; (b)-(d) two
+# ranks of this script sharing the card over gloo (NCCL refuses two ranks on
+# one device): a split edgez step, split sampling and the tensor-parallel
+# forward, each against one process; (e) convert_torch on a production-width
+# reference-layout checkpoint. The bars are the JAX package's
+# (tests/test_parallel.py): loss rtol 1e-5 and parameters 2.5e-4 after one
+# step (:37-65), the tensor-parallel forward rtol 2e-4 atol 2e-5 (:68-87),
+# split sampling 1e-4 (:102-117). The parameter bar holds where the
+# gradient is resolved: the single-process gradient exceeds DP_LIVE_GRAD and
+# the two runs' difference. Elsewhere both runs hold rounding noise (the
+# attention's key bias, whose exact gradient is zero; sums that cancel to
+# ~1e-7), and Adam's first step, lr * g / (|g| + eps), moves an element by
+# up to lr either way: those are held to 2 lr, as
+# tests/test_torch_port_train.py holds them; the gradients themselves are
+# held to GRAD_REL of their norm, the train phase's bar for the same
+# arithmetic in another order. abc compacted on the all160k packs is held
+# to COMPACT_TOL: the split changes the products' row counts, so f32 sums in
+# another order through 20 denoiser calls of trained weights.
+DP_EPOCHS = 3
+# 200 synthetic solids: one step of B=128 an epoch (drop_last)
+DP_ARGS = ("--option", "edgez", "--bf16", "--max_face", "30", "--max_edge", "20",
+           "--batch_size", "128", "--synthetic", "200", "--num_workers", "0",
+           "--train_nepoch", str(DP_EPOCHS), "--test_nepoch", str(DP_EPOCHS), "--save_nepoch",
+           str(DP_EPOCHS), "--log_every", "1", "--env", "edgez")
+DP_LOSS_RTOL, DP_PARAM_ATOL = 1e-5, 2.5e-4
+DP_LIVE_GRAD, DP_LR = 1e-6, 5e-4
+DP_SAMPLE_TOL = 1e-4
+TP_RTOL, TP_ATOL = 2e-4, 2e-5
+DP_STEP_BATCH, DP_SAMPLE_STEPS = 128, 4
+DP_WORKER_TIMEOUT = 400
+
+
+def launches_line(text):
+    """The kernel launch counts, steps and validation calls ldm_main prints."""
+    m = re.search(r"trained edgez: (\d+) steps and (\d+) validation calls .* kernel launches"
+                  r"(?: on each of \d+ ranks)? (\{.*\})", text)
+    if m is None:
+        raise AssertionError(f"dp: no 'trained' line in the CLI's output: {text[-2000:]}")
+    return int(m.group(1)), int(m.group(2)), json.loads(m.group(3))
+
+
+def reference_layout(model):
+    """``model``'s weights under the reference denoiser's names (the names
+    ``tools/convert_torch.py`` reads): stream MLPs ``<ref>.{0,1,3}``,
+    ``time_embed``, ``fc_out``, ``net.layers.<i>`` of a torch
+    ``nn.TransformerEncoder`` with packed ``in_proj`` and ``net.norm``."""
+    from brepgen_tpu_torch.tools.convert_torch import STREAM_MAPS
+
+    sd = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    ref = {}
+    mlps = dict(STREAM_MAPS["edgez"], time_embed="time_embed", head="fc_out")
+    for ours, theirs in mlps.items():
+        for i, name in ((0, "fc1"), (1, "norm"), (3, "fc2")):
+            for leaf in ("weight", "bias"):
+                ref[f"{theirs}.{i}.{leaf}"] = sd[f"{ours}.{name}.{leaf}"]
+    for i in range(model.encoder.num_layers):
+        lp, ours = f"net.layers.{i}", f"encoder.layer_{i}"
+        ref[f"{lp}.self_attn.in_proj_weight"] = sd[f"{ours}.attn.qkv.weight"]
+        ref[f"{lp}.self_attn.in_proj_bias"] = sd[f"{ours}.attn.qkv.bias"]
+        for theirs, name in (("self_attn.out_proj", "attn.proj"), ("norm1", "norm1"),
+                             ("norm2", "norm2"), ("linear1", "fc1"), ("linear2", "fc2")):
+            for leaf in ("weight", "bias"):
+                ref[f"{lp}.{theirs}.{leaf}"] = sd[f"{ours}.{name}.{leaf}"]
+    for leaf in ("weight", "bias"):
+        ref[f"net.norm.{leaf}"] = sd[f"encoder.final_norm.{leaf}"]
+    if len(ref) != len(sd):
+        raise AssertionError(f"convert: {len(ref)} reference tensors for {len(sd)} parameters")
+    return ref
+
+
+def edgez_probe(torch, model, seed):
+    """Streams, timesteps and a mask at the deepcad training shape (B=2, S=600)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    streams = [torch.randn((2, 600, d), generator=gen, device="cuda")
+               for d in model.stream_dims.values()]
+    mask = torch.zeros((2, 600), dtype=torch.bool, device="cuda")
+    mask[1, 300:] = True
+    return streams, torch.tensor([5, 600], device="cuda"), mask
+
+
+def phase_dp(torch, np, work):
+    """(a) and (e) here, (b)-(d) in two worker processes of this script."""
+    from brepgen_tpu_torch.cli.build import build_denoiser, seed_weights
+    from brepgen_tpu_torch.kernels import LAUNCH_COUNTS, reset_launch_counts
+    from brepgen_tpu_torch.train.checkpoint import load_params
+
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (ROOT, os.environ.get("PYTHONPATH")) if p))
+    vaes = ("--surfvae", os.path.join(PACKS, "surf_vae.npz"),
+            "--edgevae", os.path.join(PACKS, "edge_vae.npz"))
+    t0 = time.perf_counter()
+    # (a) the CLI: --dp under torchrun (NCCL, world size 1), then the same
+    # command without --dp (one after the other: their ms per step compare)
+    cmds = {
+        "dp": [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc_per_node", "1", "-m", "brepgen_tpu_torch.cli.ldm_main", *DP_ARGS, *vaes,
+               "--dp", "--dir_name", os.path.join(work, "dp")],
+        "one": [sys.executable, "-m", "brepgen_tpu_torch.cli.ldm_main", *DP_ARGS, *vaes,
+                "--dir_name", os.path.join(work, "one")],
+    }
+    outs = {}
+    for k, c in cmds.items():
+        proc = subprocess.run(c, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True, timeout=DP_WORKER_TIMEOUT)
+        if proc.returncode != 0:
+            raise AssertionError(f"dp (a): ldm_main ({k}) exited {proc.returncode}: "
+                                 f"{proc.stdout[-3000:]}")
+        outs[k] = proc.stdout
+    a_seconds = time.perf_counter() - t0
+    steps, val_calls, counts = launches_line(outs["dp"])
+    layers = 12
+    want = dict(packed_attention_backward=layers * steps,
+                packed_attention=2 * layers * steps + layers * val_calls)
+    if steps < DP_EPOCHS or val_calls < 1 or any(counts[k] != v for k, v in want.items()) or \
+            any(v for k, v in counts.items() if k not in want):
+        raise AssertionError(f"dp (a): {steps} steps, {val_calls} validation calls; launches "
+                             f"{counts}, expected {want}")
+    if launches_line(outs["one"])[2] != counts:
+        raise AssertionError(f"dp (a): launches without --dp {launches_line(outs['one'])[2]}")
+    records = {}
+    for k in cmds:
+        with open(os.path.join(work, k, "edgez", "edgez.jsonl")) as f:
+            records[k] = [json.loads(line) for line in f]
+    keys = ("loss", "loss_z", "loss_v")
+    losses = {k: [[r[m] for m in keys] for r in rs if "loss" in r] for k, rs in records.items()}
+    vals = {k: {m: v for r in rs for m, v in r.items() if m.startswith("Val-")}
+            for k, rs in records.items()}
+    if len(losses["dp"]) != steps or not np.allclose(losses["dp"], losses["one"],
+                                                       rtol=DP_LOSS_RTOL, atol=0) \
+            or sorted(vals["dp"]) != sorted(vals["one"]) or not all(
+                np.isclose(vals["dp"][m], v, rtol=DP_LOSS_RTOL, atol=0)
+                for m, v in vals["one"].items()):
+        raise AssertionError(f"dp (a): losses {losses}, validation {vals}")
+    bit_equal = losses["dp"] == losses["one"] and vals["dp"] == vals["one"]
+    packs = {k: os.path.join(work, k, "edgez", f"epoch_{DP_EPOCHS}.npz") for k in cmds}
+    fresh = {k: load_params(p, build_denoiser("edgez")) for k, p in packs.items()}
+    pack_diff = max((fresh["dp"].state_dict()[n] - v).abs().max().item()
+                    for n, v in fresh["one"].state_dict().items())
+    if pack_diff > DP_PARAM_ATOL:
+        raise AssertionError(f"dp (a): the --dp pack differs from the other by {pack_diff:.3e}")
+    steady = {k: [r for r in rs if "epoch_seconds" in r][1:] for k, rs in records.items()}
+    ms = {k: 1e3 * sum(r["epoch_seconds"] for r in rs) / sum(r["epoch_steps"] for r in rs)
+          for k, rs in steady.items()}
+    del fresh
+    agree = "bit-equal" if bit_equal else f"equal within {DP_LOSS_RTOL}"
+    per_step = ", ".join(f"{x[0]:.6f}" for x in losses["dp"])
+    log(f"dp (a): torchrun --nproc_per_node 1 ldm_main --dp (NCCL) and ldm_main without --dp, "
+        f"edgez bf16 B=128 S=600 W=768, {steps} steps + {val_calls} validation calls in "
+        f"{a_seconds:.2f} s (both): per-step losses {agree} ({per_step}), validation equal; "
+        f"launches {counts} = "
+        f"12 K5 and 24 K1 a step + 12 K1 a validation call; the rank-0 npz loads strictly into "
+        f"build_denoiser, max abs diff to the pack without --dp {pack_diff:g}; ms per step after "
+        f"the first {ms['dp']:.1f} (--dp) / {ms['one']:.1f}")
+    result = dict(a=dict(steps=steps, val_calls=val_calls, launches=counts, bit_equal=bit_equal,
+                         losses=losses["dp"], pack_max_abs_diff=pack_diff, ms_per_step=ms,
+                         seconds=a_seconds))
+
+    # (b)-(d) in two ranks over gloo on this card; (e) here meanwhile
+    t0 = time.perf_counter()
+    init = f"file://{os.path.join(work, 'rendezvous')}"
+    ranks = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dp_worker", str(r),
+                               "--dp_init", init, "--dp_out",
+                               os.path.join(work, f"rank{r}.json")],
+                              cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for r in (0, 1)]
+    try:
+        model = seed_weights(build_denoiser("edgez"), torch.Generator().manual_seed(6)).eval()
+        pt = os.path.join(work, "edgez_reference.pt")
+        torch.save(reference_layout(model), pt)
+        npz = os.path.join(work, "converted", "edgez.npz")
+        conv = subprocess.run([sys.executable, "-m", "brepgen_tpu_torch.tools.convert_torch",
+                               "--input", pt, "--kind", "edgez", "--output", npz], cwd=ROOT,
+                              env=env, capture_output=True, text=True, timeout=300)
+        if conv.returncode != 0:
+            raise AssertionError(f"dp (e): convert_torch exited {conv.returncode}: "
+                                 f"{conv.stdout[-2000:]}{conv.stderr[-2000:]}")
+        converted = load_params(npz, build_denoiser("edgez")).to("cuda").eval()
+        model = model.to("cuda")
+        probe = edgez_probe(torch, model, 7)
+        with torch.no_grad():
+            want_e = model(*probe)
+            reset_launch_counts()
+            got_e = converted(*probe)
+            torch.cuda.synchronize()
+            e_counts = dict(LAUNCH_COUNTS)
+        e_diff = (got_e - want_e).abs().max().item()
+        if e_diff != 0.0 or e_counts["packed_attention"] != 12:
+            raise AssertionError(f"dp (e): converted forward differs by {e_diff:.3e}; launches "
+                                 f"{e_counts}")
+        log(f"dp (e): convert_torch --kind edgez on a production-width reference-layout .pt "
+            f"({os.path.getsize(pt) / 2**20:.1f} MiB) -> npz loaded strictly; its forward "
+            f"(B=2, S=600) through K1 ({e_counts['packed_attention']} launches) equals the "
+            f"source module's bit for bit")
+        result["e"] = dict(launches=e_counts["packed_attention"], max_abs_diff=e_diff)
+        del model, converted, want_e, got_e
+        torch.cuda.empty_cache()
+    finally:
+        logs = [p.communicate(timeout=DP_WORKER_TIMEOUT)[0] for p in ranks]
+    for r, (p, text) in enumerate(zip(ranks, logs)):
+        if p.returncode != 0:
+            raise AssertionError(f"dp: worker rank {r} exited {p.returncode}: {text[-4000:]}")
+    with open(os.path.join(work, "rank0.json")) as f:
+        result.update(json.load(f))
+    for line in logs[0].splitlines():  # rank 0's result lines, on the worker's clock
+        if re.match(r"\[ *[\d.]+ s\] dp \(", line):
+            print(f"{line} (rank 0's clock)", flush=True)
+    log(f"dp (b)-(e) done in {time.perf_counter() - t0:.2f} s (two workers and the conversion "
+        f"together)")
+    return result
+
+
+def dp_worker(torch, np, rank, init, out):
+    """Rank ``rank`` of two sharing card 0 over gloo: (b) a split edgez step,
+    (c) split sampling, (d) the tensor-parallel forward; rank 0 also runs
+    each single-process reference and writes the comparisons to ``out``."""
+    import torch.distributed as dist
+
+    from brepgen_tpu_torch.cli import ldm_main
+    from brepgen_tpu_torch.cli.build import build_denoiser, seed_weights
+    from brepgen_tpu_torch.cli.sample_main import init_cascade, sample_loop
+    from brepgen_tpu_torch.data.batch_assembly import assemble_edgez_batched
+    from brepgen_tpu_torch.data.synthetic import make_dataset
+    from brepgen_tpu_torch.diffusion.ddpm import make_ddpm_tables
+    from brepgen_tpu_torch.kernels import LAUNCH_COUNTS, reset_launch_counts
+    from brepgen_tpu_torch.parallel import make_mesh, replicate
+    from brepgen_tpu_torch.parallel.distributed import RowSplit
+    from brepgen_tpu_torch.parallel.sharding_rules import shard_denoiser
+    from brepgen_tpu_torch.train import ldm_train
+    from brepgen_tpu_torch.train.common import TrainState, make_ldm_optimizer
+    from brepgen_tpu_torch.train.vae_train import make_encoder_fn
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=init, rank=rank, world_size=2)
+    split = RowSplit.of_group()
+    main_rank = rank == 0
+    res = {}
+
+    # (b) one f32 edgez step, global B=128 (64 a rank), the halves holding
+    # different counts of valid edges, against the single-process step
+    ds = make_dataset(DP_STEP_BATCH, seed=5)
+    raw = assemble_edgez_batched(ds, list(range(DP_STEP_BATCH)), max_face=30, max_edge=20)
+    batch = dict(zip(ldm_main.BATCH_KEYS["edgez"], raw))
+    order = np.argsort((~batch["edge_mask"]).sum(axis=(1, 2)), kind="stable")
+    batch = {k: torch.from_numpy(np.ascontiguousarray(v[order])).to("cuda")
+             for k, v in batch.items()}
+    valid = [int((~s.take(batch["edge_mask"].cpu())).sum()) for s in
+             (RowSplit(0, 2), RowSplit(1, 2))]
+    encode = [make_encoder_fn(ldm_main.load_vae(o, os.path.join(PACKS, f), "cuda"))
+              for o, f in (("surface", "surf_vae.npz"), ("edge", "edge_vae.npz"))]
+    tables = make_ddpm_tables()
+
+    def one_step(row_split):
+        model = seed_weights(build_denoiser("edgez", remat=True),
+                             torch.Generator().manual_seed(2)).to("cuda")
+        state = TrainState(model, make_ldm_optimizer(model.parameters()))
+        net, rows = model, batch
+        if row_split is not None:
+            model.encoder.row_split = row_split
+            net = torch.nn.parallel.DistributedDataParallel(model, device_ids=[0])
+            rows = {k: row_split.take(v) for k, v in batch.items()}
+        step = ldm_train.make_edgez_step(net, tables, *encode, row_split=row_split)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t = time.perf_counter()
+        metrics = step(state, rows, torch.Generator().manual_seed(3))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        # the clipped gradient, read back from AdamW's first moment (1 - b1) g
+        moments = state.optimizer.adamw.state
+        grads = {n: moments[p]["exp_avg"] / (1 - 0.95) for n, p in model.named_parameters()}
+        return (model, {k: float(v) for k, v in metrics.items()}, dict(LAUNCH_COUNTS), seconds,
+                grads)
+
+    model, metrics, counts, step_s, split_grads = one_step(split)
+    if counts["packed_attention_backward"] != 12 or counts["packed_attention"] != 24:
+        raise AssertionError(f"dp (b): rank {rank} launches {counts}")
+    n_params = sum(p.numel() for p in model.parameters())
+    flat = torch.zeros(n_params, device="cuda")
+    reduce_ms = []
+    for _ in range(3):
+        dist.barrier()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        dist.all_reduce(flat)
+        torch.cuda.synchronize()
+        reduce_ms.append(1e3 * (time.perf_counter() - t))
+    if main_rank:
+        split_params = {k: v.detach().clone() for k, v in model.named_parameters()}
+        del model
+        torch.cuda.empty_cache()
+        ref, ref_metrics, ref_counts, ref_s, ref_grads = one_step(None)
+        loss_rel = {k: abs(metrics[k] - v) / abs(v) for k, v in ref_metrics.items()}
+        norm = lambda ts: torch.sqrt(sum((t.double() ** 2).sum() for t in ts)).item()  # noqa: E731
+        grad_rel = norm(split_grads[k] - g for k, g in ref_grads.items()) / norm(
+            ref_grads.values())
+        live_diff = dead_diff = 0.0
+        dead = 0
+        for k, v in ref.named_parameters():
+            diff = (split_params[k] - v.detach()).abs()
+            g = ref_grads[k].abs()
+            live = (g > DP_LIVE_GRAD) & (g > (split_grads[k] - ref_grads[k]).abs())
+            dead += int((~live).sum())
+            live_diff = max(live_diff, diff[live].max().item() if live.any() else 0.0)
+            dead_diff = max(dead_diff, diff[~live].max().item() if (~live).any() else 0.0)
+        if max(loss_rel.values()) > DP_LOSS_RTOL or grad_rel > GRAD_REL \
+                or live_diff > DP_PARAM_ATOL or dead_diff > 2 * DP_LR:
+            raise AssertionError(f"dp (b): losses {metrics} / {ref_metrics} (relative "
+                                 f"{loss_rel}), gradients' global relative difference "
+                                 f"{grad_rel:.3e}, parameters max abs diff {live_diff:.3e} where "
+                                 f"the gradient is resolved, {dead_diff:.3e} at the {dead} others")
+        del ref, split_params, ref_grads
+        param_diff = live_diff
+        res["b"] = dict(launches=counts, valid_edges=valid, loss=metrics["loss"],
+                        ref_loss=ref_metrics["loss"], loss_rel=max(loss_rel.values()),
+                        param_max_abs_diff=param_diff, param_max_abs_diff_unresolved=dead_diff,
+                        unresolved_elements=dead, grad_rel=grad_rel,
+                        step_s=step_s, ref_step_s=ref_s,
+                        allreduce_ms=sum(reduce_ms) / len(reduce_ms), params=n_params)
+        log(f"dp (b): edgez f32 step, B=128 split 64/64 over 2 gloo ranks on one card (valid "
+            f"edges {valid[0]} / {valid[1]}), DDP: loss {metrics['loss']:.7f} against "
+            f"{ref_metrics['loss']:.7f} in one process (relative {max(loss_rel.values()):.2e}, "
+            f"bar {DP_LOSS_RTOL:g}), clipped gradients' global relative difference "
+            f"{grad_rel:.3e} (bar {GRAD_REL:g}), parameters after one AdamW step max abs diff "
+            f"{param_diff:.3e} where the gradient is resolved (bar {DP_PARAM_ATOL:g}), "
+            f"{dead_diff:.3e} at the {dead} of {n_params} elements where it is not (bar 2 lr = "
+            f"{2 * DP_LR:g}); K5 {counts['packed_attention_backward']} "
+            f"and K1 {counts['packed_attention']} a rank; step {1e3 * step_s:.1f} ms split, "
+            f"{1e3 * ref_s:.1f} ms whole; gloo all-reduce of the {n_params} f32 gradients "
+            f"({4 * n_params / 2**20:.1f} MiB) {res['b']['allreduce_ms']:.1f} ms a step (mean "
+            f"of 3: two ranks sharing one card through host memory, not a multi-card number)")
+    else:
+        del model
+    torch.cuda.empty_cache()
+    dist.barrier()
+
+    # (c) split sampling: deepcad seeded at production width, f32, B=16 (8 a
+    # rank), DDIM 4; abc compacted on the all160k packs, B=4 (2 a rank)
+    for name, mode, packs, batch_size, over, tol in (
+            ("deepcad", "deepcad", None, 16, {"fast_steps": DP_SAMPLE_STEPS}, DP_SAMPLE_TOL),
+            ("abc_compact", "abc", PACKS, 4, {"fast_steps": ABC_STEPS, "compact": True},
+             COMPACT_TOL)):
+        cascade = init_cascade(mode, packs, batch_size=batch_size, device="cuda",
+                               step_overrides=over, row_split=split)
+        reset_launch_counts()
+        run = sample_loop(cascade, max_batches=1, postprocess=False)
+        torch.cuda.synchronize()
+        k1 = LAUNCH_COUNTS["packed_attention"]
+        buckets = [None, None]
+        dist.all_gather_object(buckets, cascade.last_bucket)
+        del cascade
+        if main_rank:
+            single = init_cascade(mode, packs, batch_size=batch_size, device="cuda",
+                                  step_overrides=over)
+            want = sample_loop(single, max_batches=1, postprocess=False).batches[0]
+            bucket = single.last_bucket
+            del single
+            got = run.batches[0]
+            masks = all(np.array_equal(got[k], want[k]) for k in ("surf_mask", "edge_mask"))
+            err = max(float(np.abs(got[k] - want[k]).max()) for k in want
+                      if want[k].dtype != bool)
+            if not masks or err > tol or buckets != [bucket, bucket]:
+                raise AssertionError(f"dp (c) {name}: masks equal {masks}, max abs diff "
+                                     f"{err:.3e} (bar {tol:g}), buckets {buckets} / {bucket}")
+            res[f"c_{name}"] = dict(max_abs_diff=err, buckets=buckets, k1_per_rank=k1)
+            log(f"dp (c) {name}: B={batch_size} split over 2 gloo ranks on one card against "
+                f"one process: masks equal, max abs diff {err:.3e} (bar {tol:g}); face bucket "
+                f"{buckets[0]} on both ranks (one process: {bucket}); K1 {k1} a rank")
+        torch.cuda.empty_cache()
+        dist.barrier()
+
+    # (d) the edgez denoiser at production width split over 2 ranks on the
+    # mesh's model axis: 6 heads a rank through K1, against the replicated forward
+    mesh = make_mesh((1, 2), device_type="cuda")
+    model = replicate(seed_weights(build_denoiser("edgez"), torch.Generator().manual_seed(4))
+                      .to("cuda").eval(), mesh)
+    probe = edgez_probe(torch, model, 8)
+    with torch.no_grad():
+        want = model(*probe)
+        shard_denoiser(model, mesh)
+        reset_launch_counts()
+        got = model(*probe)
+        torch.cuda.synchronize()
+    k1 = LAUNCH_COUNTS["packed_attention"]
+    err = (got - want).abs()
+    ok = bool((err <= TP_ATOL + TP_RTOL * want.abs()).all())
+    heads = model.encoder.layer_0.attn.num_heads
+    if not ok or k1 != 12 or heads != 6:
+        raise AssertionError(f"dp (d): rank {rank}: max abs diff {err.max().item():.3e} (rtol "
+                             f"{TP_RTOL:g} atol {TP_ATOL:g}), K1 {k1}, heads {heads}")
+    if main_rank:
+        res["d"] = dict(max_abs_diff=err.max().item(), k1_per_rank=k1, heads=heads)
+        log(f"dp (d): edgez denoiser (12 layers, W=768) tensor-parallel over 2 gloo ranks, "
+            f"{heads} heads a rank through K1 ({k1} launches a rank), B=2 S=600 f32: max abs "
+            f"diff {err.max().item():.3e} to the replicated forward (rtol {TP_RTOL:g}, atol "
+            f"{TP_ATOL:g})")
+        with open(out, "w") as f:
+            json.dump(res, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
 def chamfer_bound(S, R, P, n):
     """S*R*n^2 distances x 8 FLOP (3 sub, 3 mul, 2 add) in f32 against each
     cloud read once and the matrix written once. Each point-pair distance
@@ -1733,6 +2146,10 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--seed", type=int, default=0,
                    help="seed of the reference clouds of the eval phase and its cloud draws")
+    # phase dp starts two ranks of this script: --dp_worker RANK
+    p.add_argument("--dp_worker", type=int, default=None, help=argparse.SUPPRESS)
+    p.add_argument("--dp_init", default=None, help=argparse.SUPPRESS)
+    p.add_argument("--dp_out", default=None, help=argparse.SUPPRESS)
     args = p.parse_args(argv)
     import numpy as np
     import torch
@@ -1740,6 +2157,8 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
+    if args.dp_worker is not None:
+        return dp_worker(torch, np, args.dp_worker, args.dp_init, args.dp_out)
     # full f32 in matrix products and convolutions, as the CPU reference
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1908,6 +2327,27 @@ def main(argv=None) -> int:
             f"{step['extracted']['seconds']:.2f} s, (d) {step['train']['seconds']:.2f} s")
         torch.cuda.empty_cache()
 
+        t = time.perf_counter()
+        os.makedirs(os.path.join(work, "dp"))
+        dp = phase_dp(torch, np, os.path.join(work, "dp"))
+        log(f"phase dp done in {time.perf_counter() - t:.2f} s")
+        dp_a = dict(path="dp (a) (torchrun --nproc_per_node 1 ldm_main --dp, NCCL, edgez, "
+                         "production width, bf16, B=128, S=600)", **dp["a"])
+        dp_paths = [
+            dict(path="dp (b) (split edgez step, f32, B=128 as 64 + 64 over 2 gloo ranks on "
+                      "one card; per rank)", launches=dp["b"]["launches"]["packed_attention"],
+                 **{k: v for k, v in dp["b"].items() if k != "launches"}),
+            dict(path="dp (c) (split deepcad sampling, seeded production width, f32, B=16 as 8 "
+                      "+ 8, DDIM 4; per rank)", launches=dp["c_deepcad"]["k1_per_rank"],
+                 **dp["c_deepcad"]),
+            dict(path="dp (c) (split abc compacted on the all160k packs, B=4 as 2 + 2; per "
+                      "rank)", launches=dp["c_abc_compact"]["k1_per_rank"], **dp["c_abc_compact"]),
+            dict(path="dp (d) (tensor-parallel edgez forward, 6 of 12 heads a rank, B=2, "
+                      "S=600, f32; per rank)", launches=dp["d"]["k1_per_rank"], **dp["d"]),
+            dict(path="dp (e) (convert_torch edgez pack, one forward, B=2, S=600)",
+                 launches=dp["e"]["launches"], max_abs_diff=dp["e"]["max_abs_diff"]),
+        ]
+
     # the top-level numbers are those of the main shape (the first of each
     # kernel's shapes: production width in f32; chamfer: the n=256 eval
     # protocol) and launches those of the kernel's first driven path; "shapes"
@@ -1919,7 +2359,9 @@ def main(argv=None) -> int:
                      paths["packed_attention"][0]["launches"], shapes["packed_attention"],
                      paths["packed_attention"] + [
                          dict(pipeline_path, launches=cached["k1_launches"]),
-                         dict(step_path, launches=step["train"]["k1_launches"])],
+                         dict(step_path, launches=step["train"]["k1_launches"]),
+                         dict(dp_a, launches=dp["a"]["launches"]["packed_attention"])]
+                     + dp_paths,
                      tensor_core_instructions=tensor_cores.get("packed_attention")),
         kernel_entry("packed_flash_attention", csrc + "packed_attention.cu",
                      "brepgen_tpu/kernels/attention.py:261",
@@ -1941,7 +2383,11 @@ def main(argv=None) -> int:
                      yardstick_ms=chamfer_shapes[0]["yardstick_ms"]),
         kernel_entry("packed_attention_backward", csrc + "packed_attention_bwd.cu",
                      "brepgen_tpu/kernels/attention.py:377", training["launches"],
-                     backward_shapes, [training, pipeline_path, step_path],
+                     backward_shapes, [training, pipeline_path, step_path,
+                                       dict(dp_a, launches=dp["a"]["launches"][
+                                           "packed_attention_backward"]),
+                                       dict(dp_paths[0], launches=dp["b"]["launches"][
+                                           "packed_attention_backward"])],
                      packed_attention_ms=backward_shapes[0]["packed_attention_ms"],
                      tensor_core_instructions=tensor_cores.get("packed_attention_bwd")),
     ]}), flush=True)

@@ -7,7 +7,9 @@ its own per head width. The ``stage_graphs`` tests hold cascades whose
 denoiser calls replay CUDA graphs (``sampling/aot.py``) to the same cascades
 run eagerly on the same noise. ``test_step_ingestion_of_card_exports`` runs
 legs (a)-(c) of ``chip_smoke.py``'s phase step on STEP files a cascade on
-the card exports.
+the card exports. The multi-GPU tests run ``ldm_main --dp`` under torchrun
+at world size 1 over NCCL, and a split train step over two gloo ranks sharing
+the card (``tests/torch_port_dist.py``).
 
 Marked ``cuda``: they skip without a card. This file imports no JAX, so it
 also runs on a machine without it (``--noconftest`` skips the JAX set-up of
@@ -824,3 +826,98 @@ def test_step_ingestion_of_card_exports(cuda, tmp_path, monkeypatch):
         with open(uid_to_path(out, uid), "rb") as f:
             got = pickle.load(f)["surf_wcs"]
         assert got.shape == sources[uid].shape and np.abs(got - sources[uid]).max() < 5e-2
+
+
+def _torchrun_env(root):
+    env = dict(os.environ, PYTHONPATH=root)
+    for var in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+        env.pop(var, None)
+    return env
+
+
+@pytest.mark.cuda
+def test_ldm_main_dp_world_size_one_over_nccl_on_card(cuda, tmp_path):
+    # torchrun --nproc_per_node 1 ldm_main --dp (NCCL) trains as the same
+    # command without --dp: equal per-step losses, K5 12 and K1 24 a step
+    # (remat) + 12 a validation call, a pack without DDP's prefix
+    import re
+    import subprocess
+    import sys
+
+    from brepgen_tpu_torch.cli.build import build_denoiser
+    from brepgen_tpu_torch.train.checkpoint import load_params
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
+    packs = os.path.join(root, "artifacts", "demo_round5", "all160k", "ckpt_packed")
+    argv = ["--option", "edgez", "--max_face", "10", "--max_edge", "8", "--batch_size", "8",
+            "--synthetic", "24", "--num_workers", "0", "--train_nepoch", "2", "--test_nepoch",
+            "2", "--log_every", "1", "--remat", "on", "--env", "edgez",
+            "--surfvae", os.path.join(packs, "surf_vae.npz"),
+            "--edgevae", os.path.join(packs, "edge_vae.npz")]
+    runs = {}
+    for name, head in (("dp", ["-m", "torch.distributed.run", "--standalone",
+                               "--nproc_per_node", "1"]), ("one", [])):
+        extra = ["--dp"] if name == "dp" else []
+        proc = subprocess.run([sys.executable, *head, "-m", "brepgen_tpu_torch.cli.ldm_main",
+                               *argv, *extra, "--dir_name", str(tmp_path / name)], cwd=root,
+                              env=_torchrun_env(root), capture_output=True, text=True,
+                              timeout=600)
+        assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+        m = re.search(r"(\d+) steps and (\d+) validation calls .* launches(?: on each of 1 "
+                      r"ranks)? (\{.*\})", proc.stdout)
+        steps, vals, counts = int(m.group(1)), int(m.group(2)), json.loads(m.group(3))
+        assert counts["packed_attention_backward"] == 12 * steps
+        assert counts["packed_attention"] == 24 * steps + 12 * vals
+        with open(tmp_path / name / "edgez" / "edgez.jsonl") as f:
+            runs[name] = [json.loads(line) for line in f]
+    losses = {k: [r["loss"] for r in v if "loss" in r] for k, v in runs.items()}
+    assert len(losses["dp"]) == steps >= 2
+    np.testing.assert_allclose(losses["dp"], losses["one"], rtol=1e-5, atol=0)
+    pack = tmp_path / "dp" / "edgez" / "epoch_2.npz"
+    load_params(str(pack), build_denoiser("edgez"))  # strict: no "module." keys
+
+
+@pytest.mark.cuda
+def test_split_step_over_two_gloo_ranks_on_card(cuda, tmp_path):
+    # two ranks share the card over gloo (tests/torch_port_dist.py) and take
+    # one DDP step each on their rows, through K1/K5 for edgez; held to the
+    # single-process step on the card: loss rtol 1e-5, gradients 1e-3 of
+    # their norm, parameters 2.5e-4 where the gradient exceeds 1e-6 and the
+    # two runs' difference (elsewhere both hold rounding noise, which Adam's
+    # first step turns into +-lr: 2 lr, chip_smoke.py's phase dp rule)
+    import pickle
+    import subprocess
+    import sys
+
+    import torch_port_dist as D
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
+    init, out = f"file://{tmp_path / 'rendezvous'}", str(tmp_path / "out")
+    procs = [subprocess.Popen([sys.executable, os.path.join(root, "tests", "torch_port_dist.py"),
+                               "--rank", str(r), "--world", "2", "--init", init, "--out", out,
+                               "--device", "cuda"], cwd=root, env=_torchrun_env(root),
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in (0, 1)]
+    logs = [p.communicate(timeout=600)[0] for p in procs]
+    assert all(p.returncode == 0 for p in procs), logs[0][-3000:] + logs[1][-3000:]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for stage in ("surfpos", "edgez"):
+        LAUNCH_COUNTS["packed_attention_backward"] = 0
+        want_metrics, want_params, want_grads = D.train_step(stage, device="cuda")
+        if stage == "edgez":
+            assert LAUNCH_COUNTS["packed_attention_backward"] == 1
+        for r in (0, 1):
+            with open(f"{out}.{r}.pkl", "rb") as f:
+                metrics, params, grads = pickle.load(f)["train"][stage]
+            for k, v in want_metrics.items():
+                np.testing.assert_allclose(metrics[k], v, rtol=1e-5, err_msg=k)
+            g_diff = sum(float(((grads[k] - g) ** 2).sum()) for k, g in want_grads.items())
+            g_norm = sum(float((g ** 2).sum()) for g in want_grads.values())
+            assert g_diff ** 0.5 <= 1e-3 * g_norm ** 0.5
+            for k, v in want_params.items():
+                diff = (params[k] - v).abs()
+                if k in want_grads:
+                    g = want_grads[k].abs()
+                    live = (g > 1e-6) & (g > (grads[k] - want_grads[k]).abs())
+                    assert not live.any() or diff[live].max() <= 2.5e-4, k
+                assert diff.max() <= 2 * 5e-4, k

@@ -36,7 +36,10 @@ def test_import_leaves_jax_out():
         "brepgen_tpu_torch.utils.profiling, brepgen_tpu_torch.geometry.step_reader, "
         "brepgen_tpu_torch.geometry.step_conformance, brepgen_tpu_torch.geometry.analytic, "
         "brepgen_tpu_torch.geometry.swept, brepgen_tpu_torch.geometry.native_extract, "
-        "brepgen_tpu_torch.geometry.native_bindings, brepgen_tpu_torch.cli.shard_driver\n"
+        "brepgen_tpu_torch.geometry.native_bindings, brepgen_tpu_torch.cli.shard_driver, "
+        "brepgen_tpu_torch.parallel, brepgen_tpu_torch.parallel.distributed, "
+        "brepgen_tpu_torch.parallel.mesh, brepgen_tpu_torch.parallel.sharding_rules, "
+        "brepgen_tpu_torch.tools.convert_torch, brepgen_tpu_torch.utils.viz\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "assert not bad, bad\n"

@@ -3,8 +3,9 @@
 ``ldm_main --small --synthetic 8`` trains each stage on synthetic solids
 through the port's own data path and writes ``epoch_N.npz``; the JAX
 package loads that pack and its forward equals the port's (1e-4, f32).
-``--resume`` continues the step count; the option that waits for a later
-slice (``--dp``) exits with a message.
+``--resume`` continues the step count; ``--dp`` outside a torchrun launch
+exits with a message naming torchrun (``test_torch_port_parallel.py`` runs
+it under torchrun).
 """
 
 import os
@@ -92,14 +93,17 @@ def test_resume_continues_the_step_count(tmp_path, vae_packs):
 
 @pytest.mark.parametrize("flag", [["--cache_latents"], ["--dp"], ["--profile", "trace"],
                                   ["--remat", "dots"]])
-def test_unported_options_exit_with_a_message(tmp_path, vae_packs, flag):
-    # only --dp still waits for a later slice (multi-GPU) and exits with a
-    # message; the other three are ported and pass the check
+def test_unported_options_exit_with_a_message(tmp_path, vae_packs, flag, monkeypatch):
+    # --dp needs a torchrun launch and, outside one, exits with a message
+    # naming it; the other three pass the check
     args = ldm_main.get_args(_argv(tmp_path, vae_packs, "edgez", *flag))
     if flag == ["--dp"]:
-        with pytest.raises(SystemExit, match=r"not ported yet \(multi-GPU: .* parallel/\)"):
+        for var in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+            monkeypatch.delenv(var, raising=False)
+        with pytest.raises(SystemExit, match=r"torchrun --nproc_per_node N -m "
+                                             r"brepgen_tpu_torch\.cli\.ldm_main --dp"):
             ldm_main.refuse_unported(args)
-        with pytest.raises(SystemExit, match="not ported yet"):
+        with pytest.raises(SystemExit, match="torchrun"):
             ldm_main.main(_argv(tmp_path, vae_packs, "edgez", *flag))
     else:
         ldm_main.refuse_unported(args)

@@ -235,13 +235,15 @@ def test_stage_timer_reports_as_jax():
     timers = (profiling.StageTimer(), JStageTimer())
     for timer in timers:
         for name in ("encode", "denoise", "encode", "decode", "encode"):
+            # 10 ms a stage: "encode" (three) leads the report by 20 ms, more
+            # than a loaded machine's scheduling jitter on one sleep
             with timer.stage(name, block_on=torch.zeros(2) if timer is timers[0] else None):
-                time.sleep(0.001)
+                time.sleep(0.01)
     (mine, theirs) = (t.summary() for t in timers)
     assert sorted(mine) == sorted(theirs) == ["decode", "denoise", "encode"]
     for k in mine:
         assert mine[k]["count"] == theirs[k]["count"]
-        assert mine[k]["total_s"] >= 0.001 * mine[k]["count"]
+        assert mine[k]["total_s"] >= 0.01 * mine[k]["count"]
     assert [line.split(":")[0] for line in timers[0].report().splitlines()][0].strip() == "encode"
     with profiling.device_trace(None):
         pass
