@@ -13,9 +13,10 @@ LAUNCH_COUNTS = {"packed_attention": 0, "packed_flash_attention": 0, "set_attent
 # nodes are counted by these
 _K1 = ("packed_attention_kernel", "packed_attention_wgmma_kernel")
 KERNEL_FUNCTIONS = {"packed_attention": (_K1, 1), "packed_flash_attention": (_K1, 1),
-                    "set_attention": (("set_attention_kernel",), 1),
+                    "set_attention": (("set_attention_kernel", "set_attention_wgmma_kernel"), 1),
                     "chamfer": (("chamfer_kernel",), 1),
-                    "packed_attention_backward": (("dq_kernel", "dkv_kernel"), 2)}
+                    "packed_attention_backward": (
+                        ("dq_kernel", "dkv_kernel", "dq_wgmma_kernel", "dkv_wgmma_kernel"), 2)}
 
 
 def reset_launch_counts() -> None:

@@ -1,22 +1,24 @@
 // Warp-level tensor-core tiles shared by set_attention.cu (K3),
 // packed_attention.cu (K1, K2) and packed_attention_bwd.cu (K5): 16-byte
-// cp.async copies into padded shared tiles, mma.sync fragment loads, one
-// product interface for both input types, the online softmax of a warp's
-// logit tile, and the whole forward of one 64-row query tile (K3, and K1/K2
-// in f32).
+// cp.async copies into padded shared tiles, mma.sync fragment loads and
+// products (f32), the bf16 split of P and dS, the online softmax of a warp's
+// logit tile, and the whole forward of one 64-row query tile (K1/K2/K3 in
+// f32). The f32 kernels run on mma.sync through 3xTF32; the bf16 kernels
+// run on wgmma (wgmma_tile.cuh), whose accumulators have the layout below,
+// and share the softmax, the epilogue and the bf16 split of P and dS.
 //
 // Tiles are [64 rows][D] of the input type in shared memory with a row stride
 // of D + 16 bytes, so that every fragment load below is free of bank
 // conflicts. A warp owns 16 rows of an m16n8 product; g = lane / 4 and
 // t = lane % 4 index the fragments as the PTX ISA lays them out.
 //
-// Precision. bf16: mma.m16n8k16 with f32 accumulators; the bf16 inputs are
-// exact and their products exact in f32. An operand formed in the kernel
-// (the probabilities P and the logit gradient dS, f32 in the accumulators)
-// is split into a bf16 pair hi + lo (hi = bf16(x), lo = bf16(x - hi), 16
-// mantissa bits together) and multiplied twice: one bf16 rounding of P would
-// cost 2^-9 relative per term, as large as the per-element bar allows.
-// f32: 3xTF32. Each operand x is split into hi = cvt.rna.tf32(x) and
+// Precision. bf16 (the products on wgmma, wgmma_tile.cuh): f32 accumulators;
+// the bf16 inputs are exact and their products exact in f32. An operand
+// formed in the kernel (the probabilities P and the logit gradient dS, f32
+// in the accumulators) is split into a bf16 pair hi + lo (hi = bf16(x),
+// lo = bf16(x - hi), 16 mantissa bits together; Op<bf16>::a_from_c) and
+// multiplied twice: one bf16 rounding of P would cost 2^-9 relative per
+// term, as large as the per-element bar allows. f32 (mma.sync): 3xTF32. Each operand x is split into hi = cvt.rna.tf32(x) and
 // lo = x - hi, left unrounded for the tensor cores, which read its top 19
 // bits (the low 13 truncated: about as accurate as rounding it first, one
 // instruction fewer); mma.m16n8k8 tf32 accumulates lo*hi + hi*lo + hi*hi in
@@ -84,14 +86,6 @@ __device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a, const uint
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
 // x rounded to tf32 as cvt.rna.tf32.f32 rounds it (to nearest, ties away
 // from zero: the low 13 bits), on the integer pipe: the conversion
 // instruction runs at a quarter of the rate, and f32 is limited by its
@@ -124,7 +118,7 @@ __device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi, uint3
   lo = *reinterpret_cast<const uint32_t*>(&l);
 }
 
-// ---- one product interface for both input types -----------------------------
+// ---- the product interface ---------------------------------------------------
 //
 // Op<T>::KS is the depth of one mma. Fragments, for a shared tile M (row
 // stride L):
@@ -133,7 +127,8 @@ __device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi, uint3
 //   load_b_kn(M, k0, n0):  B[k][n] = M[k0 + perm(k)][n0 + n]    (products X Y)
 //   a_from_c(c, kk):       A[i][k] = C[i][kk * KS + perm(k)] from the f32
 //                          accumulators of a 16 x 64 product (P or dS)
-// perm is the identity for bf16. For tf32 the accumulator holds columns 2t,
+// perm is the identity for bf16 (which keeps only a_from_c: its products
+// run on wgmma). For tf32 the accumulator holds columns 2t,
 // 2t + 1 where the A fragment wants t, t + 4, so position t stands for column
 // 2t and t + 4 for 2t + 1; load_b_kn reads its rows in the same order, and
 // the sum over k is unchanged.
@@ -213,42 +208,12 @@ template <> struct Op<float> {
   }
 };
 
+// bf16: only the operand formed in the kernel, as wgmma's register A
+// operand (the m16n8k16 A fragments of each warp's 16 rows): a bf16 pair
 template <> struct Op<__nv_bfloat16> {
   static constexpr int KS = 16;
-  struct A { uint32_t x[4]; };
   struct AP { uint32_t hi[4], lo[4]; };
-  struct B { uint32_t x[2]; };
 
-  template <int L>
-  static __device__ __forceinline__ A load_a(const __nv_bfloat16* M, int r0, int k0) {
-    const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
-    const __nv_bfloat16* p = M + (r0 + g) * L + k0 + 2 * t;
-    A a;
-    a.x[0] = *reinterpret_cast<const uint32_t*>(p);
-    a.x[1] = *reinterpret_cast<const uint32_t*>(p + 8 * L);
-    a.x[2] = *reinterpret_cast<const uint32_t*>(p + 8);
-    a.x[3] = *reinterpret_cast<const uint32_t*>(p + 8 * L + 8);
-    return a;
-  }
-  template <int L>
-  static __device__ __forceinline__ B load_b_nk(const __nv_bfloat16* M, int n0, int k0) {
-    const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
-    const __nv_bfloat16* p = M + (n0 + g) * L + k0 + 2 * t;
-    B b;
-    b.x[0] = *reinterpret_cast<const uint32_t*>(p);
-    b.x[1] = *reinterpret_cast<const uint32_t*>(p + 8);
-    return b;
-  }
-  template <int L>
-  static __device__ __forceinline__ B load_b_kn(const __nv_bfloat16* M, int k0, int n0) {
-    const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
-    const unsigned short* p =
-        reinterpret_cast<const unsigned short*>(M + (k0 + 2 * t) * L + n0 + g);
-    B b;
-    b.x[0] = (uint32_t)p[0] | ((uint32_t)p[L] << 16);
-    b.x[1] = (uint32_t)p[8 * L] | ((uint32_t)p[9 * L] << 16);
-    return b;
-  }
   static __device__ __forceinline__ AP a_from_c(const float (*c)[4], int kk) {
     AP a;
     split_bf16(c[2 * kk][0], c[2 * kk][1], a.hi[0], a.lo[0]);
@@ -256,21 +221,6 @@ template <> struct Op<__nv_bfloat16> {
     split_bf16(c[2 * kk + 1][0], c[2 * kk + 1][1], a.hi[2], a.lo[2]);
     split_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3], a.hi[3], a.lo[3]);
     return a;
-  }
-  static __device__ __forceinline__ void mma(float* c, const A& a, const B& b) {
-    mma_bf16(c, a.x, b.x);
-  }
-  static __device__ __forceinline__ void mma_swapped(float* c, const A& a, const B& b) {
-    mma_bf16(c, a.x, b.x);
-  }
-  static __device__ __forceinline__ void mma(float* c, const AP& a, const B& b) {
-    mma_bf16(c, a.lo, b.x);
-    mma_bf16(c, a.hi, b.x);
-  }
-  // the truncation drift of a long sum stays far inside the bf16 bar
-  template <typename Frag>
-  static __device__ __forceinline__ void mma_rn(float* c, const Frag& a, const B& b) {
-    mma(c, a, b);
   }
 };
 
@@ -319,8 +269,9 @@ __device__ __forceinline__ float logit(float dot, float scale, float bias) {
 // ---- the forward of one query tile ------------------------------------------
 //
 // softmax_tile, store_rows and attention_forward are the forward of K3 and,
-// on the packed layout, of K1/K2 in f32; K1/K2's bf16 kernel shares
-// softmax_tile and store_rows (its products run on wgmma instead).
+// on the packed layout, of K1/K2 in f32; the bf16 forward
+// (wg::forward_tile) shares softmax_tile, store_rows and store_stats (its
+// products run on wgmma instead).
 
 constexpr int NT = TILE / 8;  // n8 tiles of logits per 64-key tile
 constexpr float MASK_BIAS = -1e9f;
@@ -379,6 +330,19 @@ __device__ __forceinline__ void store_rows(const float (&o)[D / 8][4], const flo
   }
 }
 
+// The max m and 1/sum(l) of a warp's 16 rows, row0 the first, into
+// stats[row][0..1] (K5's row statistics); rows at or past S are not stored.
+__device__ __forceinline__ void store_stats(const float (&m)[2], const float (&l)[2],
+                                            float* stats, int row0, int S) {
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + g + 8 * r;
+    const float inv = 1.f / quad_sum(l[r]);
+    if (t == 0 && row < S) *reinterpret_cast<float2*>(stats + 2LL * row) = make_float2(m[r], inv);
+  }
+}
+
 // Dynamic shared memory of attention_forward: Q, and K, V twice, as padded
 // tiles, and two tiles of key biases.
 template <typename T, int D>
@@ -398,13 +362,14 @@ __host__ __device__ constexpr size_t forward_smem_bytes() {
 // rounding to nearest: the tensor cores truncate as they accumulate, which
 // over thousands of keys would drift past the f32 bar. Keys past S get a
 // bias of -inf (excluded, not masked); query rows past S are computed on
-// zero-filled rows and not stored.
+// zero-filled rows and not stored. Where stats is not null, each row's max
+// and 1/sum go to stats[row][0..1] (store_stats: K1's training residuals).
 template <typename T, int D>
 __device__ __forceinline__ void attention_forward(void* smem, const T* q, const T* k,
                                                   const T* v, long long stride,
                                                   const uint8_t* mrow, T* out,
                                                   long long out_stride, int S, int q0,
-                                                  float scale) {
+                                                  float scale, float* stats = nullptr) {
   using O = Op<T>;
   constexpr int L = ld<T, D>();
   constexpr int KS = O::KS;
@@ -485,6 +450,7 @@ __device__ __forceinline__ void attention_forward(void* smem, const T* q, const 
     __syncthreads();  // this buffer is refilled two tiles on
   }
   store_rows<T, D>(o, l, out, out_stride, q0 + warp * 16, S);
+  if (stats) store_stats(m, l, stats, q0 + warp * 16, S);
 }
 
 }  // namespace tc

@@ -8,12 +8,21 @@
 // batch b and head h (D = W/H, s = 1/sqrt(D), bias_j = -1e9 at padding):
 //
 //   P  = softmax_j(l_ij),  l_ij = (Q_i . K_j) * s + bias_j
-//   dV = P^T dO,  dP = dO V^T,  dL = P o (dP - Delta),  Delta_i = rowsum(dP o P)_i,
-//   dQ = s dL K,  dK = s dL^T Q,
+//   dV = P^T dO,  dP = dO V^T,  dS = P o (dP - Delta),  Delta_i = rowsum(dP o P)_i,
+//   dQ = s dS K,  dK = s dS^T Q,
 //
 // and writes dqkv [B, S, 3W] = [dQ | dK | dV] in the input type (f32 or
 // bf16); all sums are f32. A query row whose keys are all masked has a
 // uniform P over the S real keys, as the forward gives it.
+//
+// From the forward (K1 under autograd) it takes each row's max m and 1/l,
+// [B, H, S, 2], and the output O in f32 (in bf16 the unrounded f32 copy K1
+// writes beside its bf16 output): P_ij = exp(l_ij - m_i) * (1/l_i), and
+// Delta_i = rowsum(dO_i o O_i), which equals rowsum(dP o P) (one bf16
+// rounding of O would move Delta past the bar: tests/
+// test_torch_port_tc_numerics.py). So no pass recomputes the softmax. The
+// f32 copy of O costs B*S*W*4 bytes a layer under autograd (236 MB at the
+// training shape, 2.8 GB over the 12 layers of a step without --remat).
 //
 // What bounds it on an H100: the five products need 10*B*S^2*W operations;
 // at the deepcad edgez training shape (B=128, S=600, W=768) that is 354
@@ -21,64 +30,67 @@
 // (989 TFLOP/s), against about 0.7 GB to move in f32 (0.2 ms). So it is
 // bound by operations.
 //
-// Design (FlashAttention-2's backward, by hand; mma_tile.cuh has the tiles,
-// the fragment loads and the precision scheme). Two launches, no atomics,
-// so it is deterministic. Blocks of 4 warps, 16 rows per warp, 64-row tiles
-// streamed through two shared buffers by 16-byte cp.async.
-//   (a) one block per (64-row query tile, head, batch). In f32, Delta_i =
-//       rowsum(dO_i o O_i) from the forward's output O (it equals
-//       rowsum(dP o P)), and pass 1 streams the key tiles for the logits
-//       alone, keeping each row's running max m and sum l; in bf16 (a bf16
-//       O would move Delta too far) pass 1 also forms dP and takes Delta =
-//       sum_j exp(l_ij - m) dP_ij / l online. Then it writes (m, 1/l, Delta)
-//       to a small f32 [B, H, S, 3] buffer. Pass 2 streams K and V again:
-//       logits and dP = dO V^T by mma, dS = P o (dP - Delta) in registers,
-//       and dQ += dS K with dS as the A operand straight from the
-//       accumulators.
-//   (b) one block per (64-row key tile, head, batch), its K and V rows in
-//       shared memory: streams the query tiles with their row statistics,
-//       32 queries at a time (fewer registers); the warp forms S^T = K Q^T
-//       and dP^T = V dO^T with the 3xTF32 cross terms in the other order, so
-//       that they equal (a)'s S and dP bit for bit (P matches the row
-//       statistics; dS of a row that attends to one key is exactly 0), then
-//       P^T and dS^T in registers, dV += P^T dO and dK += dS^T Q.
-// The sums over S rows (dQ, dK, dV) take each k step into fresh registers
-// and add it with one rounding to nearest (the tensor cores truncate as they
-// accumulate), and f32 dK, dV are flushed into dqkv every 8 query tiles, so
-// that a sum of 1500 rows near 150 stays within the f32 bar.
-// What bounds it: operations, as above. Operations executed, in units of
-// 2*B*S^2*W (one product; the bound counts 5): in f32, 4 in (a) (the
-// logits twice, dP, dS K) and 4 in (b), so 8, or 16*B*S^2*W; in bf16, with
-// dP in pass 1 too, 9 (18*B*S^2*W). In f32 each product is 3 tf32 mma; in bf16 the
-// products whose A operand is P or dS (dS K, P^T dO, dS^T Q) take two (the
-// hi + lo pair), 12 bf16 products in all. Keys past S get a logit of -inf
-// (excluded, not masked); rows past S are computed on zero-filled tiles and
-// not stored.
-// Shared memory: 6 tiles of 64 x (D + 16 bytes) per kernel, 103 KB in f32
-// (two blocks an SM) and 55 KB in bf16 at D = 64. Registers: the
-// accumulators of a 16 x 64 (a) or two 16 x 32 (b) products and of the
-// D-wide outputs; at D = 64 f32 both kernels reach 255 with small spills,
-// bf16 168 (a) and 251 (b); chip_smoke.py prints ptxas's counts.
+// Design (FlashAttention-2's backward split in two launches, no atomics, so
+// it is deterministic: two launches give the same bits).
+//   (a) one block per (64-row query tile, head, batch): Delta of its rows
+//       from dO and O, written with (m, 1/l) to a scratch f32 [B, H, S, 4]
+//       for (b); then the key tiles stream by: logits and dP = dO V^T,
+//       dS = P o (dP - Delta) in registers, dQ += dS K.
+//   (b) one block per (64-row key tile, head, batch), its K and V rows
+//       resident: the query tiles stream by with their rows of the scratch;
+//       S^T = K Q^T and dP^T = V dO^T, P^T and dS^T in registers,
+//       dV += P^T dO and dK += dS^T Q.
+// - bf16: wgmma and TMA, as K1's bf16 forward (wgmma_tile.cuh). One
+//   warpgroup a block and an elected producer thread: the resident tiles
+//   (Q, dO in (a); K, V in (b)) come by TMA once, the streamed ones (K, V in
+//   (a); Q, dO and 64 rows of the scratch in (b)) into a ring of 2 stages
+//   under mbarriers, from 3-D tensor maps over qkv [B][S][3W], dO [B][S][W]
+//   and the scratch [B*H][S][4] with boxes of (D, 64, 1) and (4, 64, 1):
+//   rows past S zero-fill within each batch (zero m, 1/l and Delta: P = 0),
+//   so no tile reads the next batch's rows. The products X Y^T (S, dP and
+//   their transposes) take both operands K-major from shared memory
+//   (wgmma.m64n64k16); the products C Y (dS K, P^T dO, dS^T Q) take C from
+//   the accumulators as a bf16 hi + lo pair in registers and Y MN-major
+//   through the transpose bit (wgmma.m64nDk16). exp is ex2.approx.
+// - f32: mma.sync through 3xTF32 (mma_tile.cuh; wgmma's tf32 takes only
+//   K-major operands, and the products C Y and the transposed X Y^T read
+//   their operands across rows), 16-byte cp.async into two padded buffers;
+//   (b) forms S^T and dP^T with the 3xTF32 cross terms in the other order,
+//   so that they equal (a)'s S and dP bit for bit, 32 queries at a time
+//   (fewer registers).
+// The sums over S rows (dQ, dK, dV) take each tile's product into fresh
+// accumulators and add it with one rounding to nearest (the tensor cores
+// truncate as they accumulate), and f32 dK, dV are flushed into dqkv every
+// 8 query tiles, so that a sum of 1500 rows near 150 stays within the f32
+// bar. Keys past S get a logit of -inf (excluded, not masked); rows past S
+// are computed on zero-filled tiles and not stored.
+// Operations executed, in units of 2*B*S^2*W (one product; the bound counts
+// 5): 3 in (a) (logits, dP, dS K) and 4 in (b) (S^T, dP^T, P^T dO, dS^T Q),
+// 7 in all. f32 runs each as 3 tf32 mma; bf16 runs the three products whose
+// A operand is P or dS twice (the hi + lo pair), 10 bf16 products in all.
+// Shared memory at D = 64: bf16 (a) Q, dO and two stages of K, V, 48 KB,
+// (b) K, V and two stages of Q, dO and 64 scratch rows, 50 KB; f32 6 padded
+// tiles of 64 x (D + 16 bytes), 103 KB (two blocks an SM). chip_smoke.py
+// prints each function's registers and spills.
 
 #include <math.h>
 
-#include "mma_tile.cuh"
+#include "wgmma_tile.cuh"
 
 namespace {
 
 constexpr int BT = tc::TILE;  // rows per tile, streamed or owned
 constexpr int NT = BT / 8;    // n8 tiles of a 16 x 64 product
-constexpr float MASK_BIAS = -1e9f;
+using bf16 = __nv_bfloat16;
 
-template <typename T, int D>
-constexpr size_t smem_a() {
-  return 6 * (size_t)BT * tc::ld<T, D>() * sizeof(T) + 3 * BT * sizeof(float);
-}
-template <typename T, int D>
-constexpr size_t smem_b() {
-  return 6 * (size_t)BT * tc::ld<T, D>() * sizeof(T) + 2 * 3 * BT * sizeof(float);
-}
+// ---- f32: mma.sync through 3xTF32 ----------------------------------------------
 
+// 6 padded tiles, and (a) 2 x 64 key biases and 64 Deltas, (b) 2 x 3 x 64
+// row statistics
+template <int D>
+constexpr size_t smem_f32() {
+  return 6 * (size_t)BT * tc::ld<float, D>() * sizeof(float) + 6 * BT * sizeof(float);
+}
 
 // c[j] = X Y^T over D for the warp's 16 rows r0.. of X (shared [*][L])
 // against the N rows of Y (shared [N][L]).
@@ -104,8 +116,8 @@ __device__ __forceinline__ void product_nt(float (*c)[4], const T* X, int r0, co
 // acc[d] += C Y over the N rows of Y (shared [N][L]), C the warp's
 // 16 x N accumulators (P or dS). These are the sums over S rows (dQ, dK,
 // dV), so they are taken in levels, each add rounded to nearest: each k
-// step into fresh accumulators, those into acc (and f32 dK, dV flush acc
-// into dqkv every few tiles, in dkv_kernel).
+// step into fresh accumulators, those into acc (and dK, dV flush acc into
+// dqkv every few tiles, in dkv_kernel).
 template <typename T, int D, int N>
 __device__ __forceinline__ void product_cn(float (*acc)[4], const float (*c)[4], const T* Y) {
   using Op = tc::Op<T>;
@@ -127,15 +139,46 @@ __device__ __forceinline__ void product_cn(float (*acc)[4], const float (*c)[4],
   }
 }
 
-// (a): row statistics and dQ for one 64-row query tile of one head. fwd is
-// the forward's output in f32 and null in bf16 (Delta online). It is tested
-// at run time: with the test folded at compile time nvcc allocates the f32
-// kernel's registers otherwise, and it ran slower on the card.
+// Delta = rowsum(dO o O) of the 64 query rows from row0, from dO and O
+// [*, W] in global memory at this head's columns (ofs), two threads a row,
+// into delta[] in shared memory and, with the row's (m, 1/l) from stats
+// [S][2], into rows_out [S][4] as (m, 1/l, Delta, 0); rows past S get 0 and
+// are not written. All threads; ends in __syncthreads().
+template <typename T, int D>
+__device__ __forceinline__ void row_deltas(const T* dout, const float* o32, const float* stats,
+                                           float* rows_out, float* delta, long long ofs, int W,
+                                           int row0, int S) {
+  const int r = threadIdx.x >> 1, half = threadIdx.x & 1;
+  const int row = row0 + r;
+  float sum = 0.f;
+  if (row < S) {
+    const long long at = ofs + (long long)row * W + half * (D / 2);
+#pragma unroll
+    for (int d = 0; d < D / 2; d += 4) {
+      const float4 o = *reinterpret_cast<const float4*>(o32 + at + d);
+      sum = fmaf(tc::to_float(dout[at + d]), o.x, sum);
+      sum = fmaf(tc::to_float(dout[at + d + 1]), o.y, sum);
+      sum = fmaf(tc::to_float(dout[at + d + 2]), o.z, sum);
+      sum = fmaf(tc::to_float(dout[at + d + 3]), o.w, sum);
+    }
+  }
+  sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+  if (half == 0) {
+    delta[r] = sum;
+    if (row < S) {
+      const float2 ml = *reinterpret_cast<const float2*>(stats + 2LL * row);
+      *reinterpret_cast<float4*>(rows_out + 4LL * row) = make_float4(ml.x, ml.y, sum, 0.f);
+    }
+  }
+  __syncthreads();
+}
+
+// (a), f32 (T = float): dQ for one 64-row query tile of one head.
 template <typename T, int D>
 __global__ void __launch_bounds__(tc::THREADS)
-dq_kernel(const T* __restrict__ qkv, const T* __restrict__ dout, const T* __restrict__ fwd,
-          const uint8_t* __restrict__ mask, float* __restrict__ stats, T* __restrict__ dqkv,
-          int S, int W, int H, float scale) {
+dq_kernel(const T* __restrict__ qkv, const T* __restrict__ dout, const float* __restrict__ o32,
+          const float* __restrict__ stats, const uint8_t* __restrict__ mask,
+          float* __restrict__ rows, T* __restrict__ dqkv, int S, int W, int H, float scale) {
   constexpr int L = tc::ld<T, D>();
   extern __shared__ uint4 smem[];
   T* Qs = reinterpret_cast<T*>(smem);  // [BT][L]
@@ -153,121 +196,63 @@ dq_kernel(const T* __restrict__ qkv, const T* __restrict__ dout, const T* __rest
   const T* base = qkv + (long long)b * S * rs + (long long)h * D;
   const long long gofs = (long long)b * S * W + (long long)h * D;
   const uint8_t* mrow = mask + (long long)b * S;
+  const long long hs = ((long long)b * H + h) * S;  // this head's first row of the statistics
 
-  // Delta from the forward's output: O rows staged in K's first buffer
-  tc::load_tile<T, D>(Qs, base + q0 * rs, rs, S - q0);
-  tc::load_tile<T, D>(Gs, dout + gofs + (long long)q0 * W, W, S - q0);
-  if (fwd) tc::load_tile<T, D>(Ks, fwd + gofs + (long long)q0 * W, W, S - q0);
-  tc::cp_commit();
-  tc::cp_wait<0>();
-  __syncthreads();
-  if (fwd) {
-    const int r = threadIdx.x >> 1, half = threadIdx.x & 1;  // two threads per row
-    float sum = 0.f;
-#pragma unroll
-    for (int d = half * D / 2; d < (half + 1) * D / 2; ++d)
-      sum = fmaf(tc::to_float(Gs[r * L + d]), tc::to_float(Ks[r * L + d]), sum);
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    if (half == 0) delta[r] = sum;
-    __syncthreads();
-  }
-
-  auto load_kv = [&](int k0, int buf, bool with_v) {
+  auto load_kv = [&](int k0, int buf) {
     tc::load_tile<T, D>(Ks + buf * BT * L, base + k0 * rs + W, rs, S - k0);
-    if (with_v) tc::load_tile<T, D>(Vs + buf * BT * L, base + k0 * rs + 2 * W, rs, S - k0);
+    tc::load_tile<T, D>(Vs + buf * BT * L, base + k0 * rs + 2 * W, rs, S - k0);
     if (threadIdx.x < BT) {
       const int key = k0 + threadIdx.x;
-      bias[buf * BT + threadIdx.x] = key < S ? (mrow[key] ? MASK_BIAS : 0.f) : -INFINITY;
+      bias[buf * BT + threadIdx.x] = key < S ? (mrow[key] ? tc::MASK_BIAS : 0.f) : -INFINITY;
     }
   };
+  tc::load_tile<T, D>(Qs, base + q0 * rs, rs, S - q0);
+  tc::load_tile<T, D>(Gs, dout + gofs + (long long)q0 * W, W, S - q0);
+  load_kv(0, 0);
+  tc::cp_commit();
+  row_deltas<T, D>(dout, o32, stats + 2 * hs, rows + 4 * hs, delta, gofs, W, q0, S);
 
-  float m[2] = {-1e30f, -1e30f};  // rows g, g + 8: running max
-  float l[2] = {0.f, 0.f};        // this lane's part of the running sum
-  float tsum[2] = {0.f, 0.f};     // bf16: sum_j exp(l_ij - m) dP_ij
-  float inv_l[2], dl[2];
+  float m[2], inv_l[2], dl[2];  // rows g, g + 8; rows past S: P = 0
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = warp * 16 + g + 8 * r;
+    const bool ok = q0 + i < S;
+    m[r] = ok ? stats[2 * (hs + q0 + i)] : 0.f;
+    inv_l[r] = ok ? stats[2 * (hs + q0 + i) + 1] : 0.f;
+    dl[r] = delta[i];
+  }
   float dq[D / 8][4];
 #pragma unroll
   for (int d = 0; d < D / 8; ++d) dq[d][0] = dq[d][1] = dq[d][2] = dq[d][3] = 0.f;
 
   const int tiles = (S + BT - 1) / BT;
-  for (int pass = 0; pass < 2; ++pass) {
-    const bool with_v = pass == 1 || !fwd;
-    load_kv(0, 0, with_v);
-    tc::cp_commit();
-    for (int it = 0; it < tiles; ++it) {
-      const int buf = it & 1;
-      if (it + 1 < tiles) {
-        load_kv((it + 1) * BT, buf ^ 1, with_v);
-        tc::cp_commit();
-        tc::cp_wait<1>();
-      } else {
-        tc::cp_wait<0>();
-      }
-      __syncthreads();
-      const T* Kt = Ks + buf * BT * L;
-      const T* Vt = Vs + buf * BT * L;
-      const float* bt = bias + buf * BT;
+  for (int it = 0; it < tiles; ++it) {
+    const int buf = it & 1;
+    if (it + 1 < tiles) {
+      load_kv((it + 1) * BT, buf ^ 1);
+      tc::cp_commit();
+      tc::cp_wait<1>();
+    } else {
+      tc::cp_wait<0>();
+    }
+    __syncthreads();
+    const T* Kt = Ks + buf * BT * L;
+    const float* bt = bias + buf * BT;
 
-      float s[NT][4], dp[NT][4];
-      product_nt<T, D, BT>(s, Qs, warp * 16, Kt);
+    float s[NT][4], dp[NT][4];
+    product_nt<T, D, BT>(s, Qs, warp * 16, Kt);
+    product_nt<T, D, BT>(dp, Gs, warp * 16, Vs + buf * BT * L);
 #pragma unroll
-      for (int j = 0; j < NT; ++j) {
+    for (int j = 0; j < NT; ++j) {
 #pragma unroll
-        for (int e = 0; e < 4; ++e) s[j][e] = tc::logit(s[j][e], scale, bt[j * 8 + 2 * t + (e & 1)]);
-      }
-      if (with_v) product_nt<T, D, BT>(dp, Gs, warp * 16, Vt);
-      if (pass == 0) {
-        float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-        for (int j = 0; j < NT; ++j) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
-        }
-        float corr[2];
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const float m_new = fmaxf(m[r], tc::quad_max(mx[r]));
-          corr[r] = tc::exp_(m[r] - m_new);
-          l[r] *= corr[r];
-          tsum[r] *= corr[r];
-          m[r] = m_new;
-        }
-#pragma unroll
-        for (int j = 0; j < NT; ++j) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const float p = tc::exp_(s[j][e] - m[e >> 1]);
-            l[e >> 1] += p;
-            if (!fwd) tsum[e >> 1] = fmaf(p, dp[j][e], tsum[e >> 1]);
-          }
-        }
-      } else {
-#pragma unroll
-        for (int j = 0; j < NT; ++j) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const float p = tc::exp_(s[j][e] - m[e >> 1]) * inv_l[e >> 1];
-            dp[j][e] = p * (dp[j][e] - dl[e >> 1]);  // dS
-          }
-        }
-        product_cn<T, D, BT>(dq, dp, Kt);
-      }
-      __syncthreads();  // this buffer is refilled two tiles on
-    }
-    if (pass == 0) {
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int i = warp * 16 + g + 8 * r;
-        inv_l[r] = 1.f / tc::quad_sum(l[r]);
-        dl[r] = fwd ? delta[i] : tc::quad_sum(tsum[r]) * inv_l[r];
-        if (t == 0 && q0 + i < S) {
-          float* st = stats + (((long long)b * H + h) * S + q0 + i) * 3;
-          st[0] = m[r];
-          st[1] = inv_l[r];
-          st[2] = dl[r];
-        }
+      for (int e = 0; e < 4; ++e) {
+        const float l = tc::logit(s[j][e], scale, bt[j * 8 + 2 * t + (e & 1)]);
+        const float p = tc::exp_(l - m[e >> 1]) * inv_l[e >> 1];
+        dp[j][e] = p * (dp[j][e] - dl[e >> 1]);  // dS
       }
     }
+    product_cn<T, D, BT>(dq, dp, Kt);
+    __syncthreads();  // this buffer is refilled two tiles on
   }
 
 #pragma unroll
@@ -310,11 +295,11 @@ __device__ __forceinline__ void store_dkv(T* dqkv, const float (*dk)[4], const f
   }
 }
 
-// (b): dK and dV for one 64-row key tile of one head.
+// (b), f32 (T = float): dK and dV for one 64-row key tile of one head.
 template <typename T, int D>
 __global__ void __launch_bounds__(tc::THREADS)
 dkv_kernel(const T* __restrict__ qkv, const T* __restrict__ dout,
-           const uint8_t* __restrict__ mask, const float* __restrict__ stats,
+           const uint8_t* __restrict__ mask, const float* __restrict__ rows,
            T* __restrict__ dqkv, int S, int W, int H, float scale) {
   constexpr int L = tc::ld<T, D>();
   extern __shared__ uint4 smem[];
@@ -331,14 +316,14 @@ dkv_kernel(const T* __restrict__ qkv, const T* __restrict__ dout,
   const long long rs = 3LL * W;
   const T* base = qkv + (long long)b * S * rs + (long long)h * D;
   const T* gbase = dout + (long long)b * S * W + (long long)h * D;
-  const float* sbase = stats + ((long long)b * H + h) * S * 3;
+  const float* sbase = rows + ((long long)b * H + h) * S * 4;
   constexpr int QN = BT / 2;  // query rows per step: fewer registers
 
   float kb[2];  // bias of the warp's key rows g, g + 8; -inf past S
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int key = k0 + warp * 16 + g + 8 * r;
-    kb[r] = key < S ? (mask[(long long)b * S + key] ? MASK_BIAS : 0.f) : -INFINITY;
+    kb[r] = key < S ? (mask[(long long)b * S + key] ? tc::MASK_BIAS : 0.f) : -INFINITY;
   }
 
   auto load_q = [&](int q0, int buf) {
@@ -348,9 +333,11 @@ dkv_kernel(const T* __restrict__ qkv, const T* __restrict__ dout,
       const int i = threadIdx.x;
       const bool ok = q0 + i < S;
       float* sb = st + buf * 3 * BT;
-      sb[i] = ok ? sbase[(long long)(q0 + i) * 3] : 0.f;
-      sb[BT + i] = ok ? sbase[(long long)(q0 + i) * 3 + 1] : 0.f;
-      sb[2 * BT + i] = ok ? sbase[(long long)(q0 + i) * 3 + 2] : 0.f;
+      const float4 r = ok ? *reinterpret_cast<const float4*>(sbase + 4LL * (q0 + i))
+                          : make_float4(0.f, 0.f, 0.f, 0.f);
+      sb[i] = r.x;
+      sb[BT + i] = r.y;
+      sb[2 * BT + i] = r.z;
     }
   };
   tc::load_tile<T, D>(Ks, base + k0 * rs + W, rs, S - k0);
@@ -365,11 +352,11 @@ dkv_kernel(const T* __restrict__ qkv, const T* __restrict__ dout,
     dv[d][0] = dv[d][1] = dv[d][2] = dv[d][3] = 0.f;
   }
 
-  // f32 flushes its sums into dqkv every FLUSH query tiles and adds them up
+  // flushes its sums into dqkv every FLUSH query tiles and adds them up
   // there (the block owns these rows), so a sum over S rows takes few adds
   // at its full size: dV of a key that all 1500 queries attend is about 150,
-  // where one f32 add rounds by up to 8e-6. bf16 stores once.
-  constexpr int FLUSH = sizeof(T) == 4 ? 8 : 1 << 30;
+  // where one f32 add rounds by up to 8e-6
+  constexpr int FLUSH = 8;
 
   const int tiles = (S + BT - 1) / BT;
   for (int it = 0; it < tiles; ++it) {
@@ -390,7 +377,7 @@ dkv_kernel(const T* __restrict__ qkv, const T* __restrict__ dout,
     for (int q0 = 0; q0 < BT; q0 += QN) {
       float p[QN / 8][4], ds[QN / 8][4];
       // the cross terms in the other order: S^T and dP^T equal (a)'s S and
-      // dP bit for bit, so P matches (a)'s statistics and dS its Delta
+      // dP bit for bit
       product_nt<T, D, QN, true>(p, Ks, warp * 16, Qt + q0 * L);   // S^T
       product_nt<T, D, QN, true>(ds, Vs, warp * 16, Gt + q0 * L);  // dP^T
 #pragma unroll
@@ -418,75 +405,363 @@ dkv_kernel(const T* __restrict__ qkv, const T* __restrict__ dout,
   store_dkv<T, D>(dqkv, dk, dv, b, S, W, h, k0 + warp * 16, scale, tiles > FLUSH);
 }
 
+// ---- bf16: wgmma and TMA ----------------------------------------------------------
+
+constexpr int STAGES = wg::STAGES;
+constexpr uint32_t ROWS_TILE = BT * 4 * sizeof(float);  // 64 rows of the scratch
+
+template <int D>
+constexpr size_t smem_dq_wgmma() {
+  // Q, dO, STAGES x (K, V), alignment
+  return (2 + 2 * STAGES) * (size_t)wg::tile_bytes<D>() + 1024;
+}
+template <int D>
+constexpr size_t smem_dkv_wgmma() {
+  // K, V, STAGES x (Q, dO), STAGES scratch tiles, alignment
+  return (2 + 2 * STAGES) * (size_t)wg::tile_bytes<D>() + STAGES * ROWS_TILE + 1024;
+}
+
+// (a), bf16: dQ for one 64-row query tile of one head.
 template <typename T, int D>
-cudaError_t launch(const void* qkv, const void* dout, const void* fwd, const void* mask,
-                   void* stats, void* dqkv, int B, int S, int W, int H, float scale,
-                   cudaStream_t stream) {
-  // A bf16 O rounds each element by up to 2^-9; through Delta that moves dQ
-  // and dK past the per-element bar (tests/test_torch_port_tc_numerics.py),
-  // so bf16 takes Delta online from dP, one product more, and f32 alone
-  // reads O.
-  if (sizeof(T) == 4 && fwd == nullptr) return cudaErrorInvalidValue;
-  if (sizeof(T) == 2) fwd = nullptr;
-  constexpr size_t sa = smem_a<T, D>(), sb = smem_b<T, D>();
+__global__ void __launch_bounds__(tc::THREADS)
+dq_wgmma_kernel(const __grid_constant__ CUtensorMap qkv_map,
+                const __grid_constant__ CUtensorMap do_map, const T* __restrict__ dout,
+                const float* __restrict__ o32, const float* __restrict__ stats,
+                const uint8_t* __restrict__ mask, float* __restrict__ rows,
+                T* __restrict__ dqkv, int S, int W, int H, float scale) {
+  constexpr uint32_t TB = wg::tile_bytes<D>();
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ uint64_t bars[1 + 2 * STAGES];
+  __shared__ float delta[BT];
+  uint64_t* qbar = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + STAGES;
+  uint8_t* tiles = wg::aligned_tiles(smem_raw);  // Q, dO, then K, V per stage
+  auto k_tile = [&](int s) { return tiles + (2 + 2 * s) * TB; };
+  auto v_tile = [&](int s) { return tiles + (3 + 2 * s) * TB; };
+
+  const int warp = threadIdx.x >> 5;
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  const int h = blockIdx.y, b = blockIdx.z, q0 = blockIdx.x * BT;
+  const int n_tiles = (S + BT - 1) / BT;
+  const uint8_t* mrow = mask + (long long)b * S;
+  const long long hs = ((long long)b * H + h) * S;  // this head's first row of the statistics
+
+  auto load_kv = [&](int it) {
+    const int s = it % STAGES;
+    wg::bar_expect(&full[s], 2 * TB);
+    wg::tma_load(k_tile(s), qkv_map, &full[s], W + h * D, it * BT, b);
+    wg::tma_load(v_tile(s), qkv_map, &full[s], 2 * W + h * D, it * BT, b);
+  };
+  if (threadIdx.x == 0) {
+    wg::bar_init(qbar, 1);
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      wg::bar_init(&full[s], 1);
+      wg::bar_init(&empty[s], tc::THREADS);
+    }
+    wg::bar_fence_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    wg::bar_expect(qbar, 2 * TB);
+    wg::tma_load(tiles, qkv_map, qbar, h * D, q0, b);
+    wg::tma_load(tiles + TB, do_map, qbar, h * D, q0, b);
+    for (int it = 0; it < STAGES && it < n_tiles; ++it) load_kv(it);
+  }
+  __syncwarp();
+  // while the tiles come: Delta of the block's rows, and the scratch rows
+  row_deltas<T, D>(dout, o32, stats + 2 * hs, rows + 4 * hs, delta,
+                   (long long)b * S * W + (long long)h * D, W, q0, S);
+
+  float m[2], inv_l[2], dl[2];  // rows g, g + 8; rows past S: P = 0
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = warp * 16 + g + 8 * r;
+    const bool ok = q0 + i < S;
+    m[r] = ok ? stats[2 * (hs + q0 + i)] : 0.f;
+    inv_l[r] = ok ? stats[2 * (hs + q0 + i) + 1] : 0.f;
+    dl[r] = delta[i];
+  }
+  float dq[D / 8][4];
+#pragma unroll
+  for (int d = 0; d < D / 8; ++d) dq[d][0] = dq[d][1] = dq[d][2] = dq[d][3] = 0.f;
+  const uint64_t dsc_q = wg::desc<D>(tiles), dsc_do = wg::desc<D>(tiles + TB);
+  wg::bar_wait(qbar, 0);
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int s = it % STAGES;
+    const uint32_t parity = (it / STAGES) & 1;
+    float bias[NT][2];  // of this lane's 16 key columns
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int key = it * BT + j * 8 + 2 * t + e;
+        bias[j][e] = key < S ? (mrow[key] ? tc::MASK_BIAS : 0.f) : -INFINITY;
+      }
+    }
+    const uint64_t dk = wg::desc<D>(k_tile(s)), dv = wg::desc<D>(v_tile(s));
+    wg::bar_wait(&full[s], parity);
+
+    float sc[NT][4], dp[NT][4];
+    wg::product_xyt<D>(sc, dsc_q, dk);   // S = Q K^T
+    wg::product_xyt<D>(dp, dsc_do, dv);  // dP = dO V^T
+    wg::wait_all();
+    wg::fence_acc(sc);
+    wg::fence_acc(dp);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float l = tc::logit(sc[j][e], scale, bias[j][e & 1]);
+        const float p = tc::exp_fast(l - m[e >> 1]) * inv_l[e >> 1];
+        dp[j][e] = p * (dp[j][e] - dl[e >> 1]);  // dS
+      }
+    }
+    float part[D / 8][4];
+    wg::product_cy<D>(part, dp, dk);  // dS K
+#pragma unroll
+    for (int d = 0; d < D / 8; ++d) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dq[d][e] += part[d][e];
+    }
+
+    // the stage is consumed: the elected thread refills it, STAGES tiles on
+    wg::bar_arrive(&empty[s]);
+    if (threadIdx.x == 0 && it + STAGES < n_tiles) {
+      wg::bar_wait(&empty[s], parity);
+      load_kv(it + STAGES);
+    }
+    __syncwarp();  // warp 0 converged again for the next tile's wgmma
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + warp * 16 + g + 8 * r;
+    if (row < S) {
+      T* op = dqkv + ((long long)b * S + row) * 3 * W + (long long)h * D + 2 * t;
+#pragma unroll
+      for (int d = 0; d < D / 8; ++d)
+        tc::store2(op + d * 8, dq[d][2 * r] * scale, dq[d][2 * r + 1] * scale);
+    }
+  }
+}
+
+// (b), bf16: dK and dV for one 64-row key tile of one head.
+template <typename T, int D>
+__global__ void __launch_bounds__(tc::THREADS)
+dkv_wgmma_kernel(const __grid_constant__ CUtensorMap qkv_map,
+                 const __grid_constant__ CUtensorMap do_map,
+                 const __grid_constant__ CUtensorMap rows_map, const uint8_t* __restrict__ mask,
+                 T* __restrict__ dqkv, int S, int W, int H, float scale) {
+  constexpr uint32_t TB = wg::tile_bytes<D>();
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ uint64_t bars[1 + 2 * STAGES];
+  uint64_t* kvbar = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + STAGES;
+  // K, V, then Q, dO per stage, then the stages' scratch rows
+  uint8_t* tiles = wg::aligned_tiles(smem_raw);
+  auto q_tile = [&](int s) { return tiles + (2 + 2 * s) * TB; };
+  auto do_tile = [&](int s) { return tiles + (3 + 2 * s) * TB; };
+  auto rows_tile = [&](int s) {
+    return reinterpret_cast<const float4*>(tiles + (2 + 2 * STAGES) * TB + s * ROWS_TILE);
+  };
+
+  const int warp = threadIdx.x >> 5;
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  const int h = blockIdx.y, b = blockIdx.z, k0 = blockIdx.x * BT;
+  const int n_tiles = (S + BT - 1) / BT;
+  const int zh = b * H + h;
+
+  auto load_q = [&](int it) {
+    const int s = it % STAGES;
+    wg::bar_expect(&full[s], 2 * TB + ROWS_TILE);
+    wg::tma_load(q_tile(s), qkv_map, &full[s], h * D, it * BT, b);
+    wg::tma_load(do_tile(s), do_map, &full[s], h * D, it * BT, b);
+    wg::tma_load(const_cast<float4*>(rows_tile(s)), rows_map, &full[s], 0, it * BT, zh);
+  };
+  if (threadIdx.x == 0) {
+    wg::bar_init(kvbar, 1);
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      wg::bar_init(&full[s], 1);
+      wg::bar_init(&empty[s], tc::THREADS);
+    }
+    wg::bar_fence_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    wg::bar_expect(kvbar, 2 * TB);
+    wg::tma_load(tiles, qkv_map, kvbar, W + h * D, k0, b);
+    wg::tma_load(tiles + TB, qkv_map, kvbar, 2 * W + h * D, k0, b);
+    for (int it = 0; it < STAGES && it < n_tiles; ++it) load_q(it);
+  }
+  __syncwarp();
+
+  float kb[2];  // bias of the warp's key rows g, g + 8; -inf past S
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = k0 + warp * 16 + g + 8 * r;
+    kb[r] = key < S ? (mask[(long long)b * S + key] ? tc::MASK_BIAS : 0.f) : -INFINITY;
+  }
+  float dk[D / 8][4], dv[D / 8][4];
+#pragma unroll
+  for (int d = 0; d < D / 8; ++d) {
+    dk[d][0] = dk[d][1] = dk[d][2] = dk[d][3] = 0.f;
+    dv[d][0] = dv[d][1] = dv[d][2] = dv[d][3] = 0.f;
+  }
+  const uint64_t dsc_k = wg::desc<D>(tiles), dsc_v = wg::desc<D>(tiles + TB);
+  wg::bar_wait(kvbar, 0);
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int s = it % STAGES;
+    const uint32_t parity = (it / STAGES) & 1;
+    const uint64_t dq = wg::desc<D>(q_tile(s)), ddo = wg::desc<D>(do_tile(s));
+    wg::bar_wait(&full[s], parity);
+
+    float pt[NT][4], dst[NT][4];
+    wg::product_xyt<D>(pt, dsc_k, dq);    // S^T = K Q^T
+    wg::product_xyt<D>(dst, dsc_v, ddo);  // dP^T = V dO^T
+    wg::wait_all();
+    wg::fence_acc(pt);
+    wg::fence_acc(dst);
+    const float4* sr = rows_tile(s);  // (m, 1/l, Delta) of the tile's queries
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const float4 q = sr[j * 8 + 2 * t + c];  // query column j*8 + 2t + c
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int e = 2 * r + c;
+          const float p = tc::exp_fast(tc::logit(pt[j][e], scale, kb[r]) - q.x) * q.y;
+          pt[j][e] = p;
+          dst[j][e] = p * (dst[j][e] - q.z);  // dS^T
+        }
+      }
+    }
+    float part[D / 8][4];
+    wg::product_cy<D>(part, pt, ddo);  // P^T dO
+#pragma unroll
+    for (int d = 0; d < D / 8; ++d) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dv[d][e] += part[d][e];
+    }
+    wg::product_cy<D>(part, dst, dq);  // dS^T Q
+#pragma unroll
+    for (int d = 0; d < D / 8; ++d) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dk[d][e] += part[d][e];
+    }
+
+    wg::bar_arrive(&empty[s]);
+    if (threadIdx.x == 0 && it + STAGES < n_tiles) {
+      wg::bar_wait(&empty[s], parity);
+      load_q(it + STAGES);
+    }
+    __syncwarp();
+  }
+  store_dkv<T, D>(dqkv, dk, dv, b, S, W, h, k0 + warp * 16, scale, false);
+}
+
+// ---- launchers -----------------------------------------------------------------------
+
+template <int D>
+cudaError_t launch_f32(const void* qkv, const void* dout, const void* o32, const void* stats,
+                       const void* mask, void* rows, void* dqkv, int B, int S, int W, int H,
+                       float scale, cudaStream_t stream) {
+  constexpr size_t smem = smem_f32<D>();
+  using T = float;
   cudaError_t e = cudaFuncSetAttribute(dq_kernel<T, D>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sa);
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
   e = cudaFuncSetAttribute(dkv_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((S + BT - 1) / BT, H, B);
+  const float* x = static_cast<const float*>(qkv);
+  const float* g = static_cast<const float*>(dout);
+  const uint8_t* m = static_cast<const uint8_t*>(mask);
+  float* r = static_cast<float*>(rows);
+  float* out = static_cast<float*>(dqkv);
+  dq_kernel<T, D><<<grid, tc::THREADS, smem, stream>>>(x, g, static_cast<const float*>(o32),
+                                                       static_cast<const float*>(stats), m, r,
+                                                       out, S, W, H, scale);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  dkv_kernel<T, D><<<grid, tc::THREADS, smem, stream>>>(x, g, m, r, out, S, W, H, scale);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_wgmma(const void* qkv, const void* dout, const void* o32, const void* stats,
+                         const void* mask, void* rows, void* dqkv, int B, int S, int W, int H,
+                         float scale, cudaStream_t stream) {
+  using T = bf16;
+  CUtensorMap qkv_map, do_map, rows_map;
+  if (!tmap::tiles<D>(&qkv_map, qkv, 3ull * W, 3ull * W, S, B) ||
+      !tmap::tiles<D>(&do_map, dout, W, W, S, B) ||
+      !tmap::rows4(&rows_map, rows, S, (uint64_t)B * H)) {
+    return cudaErrorInvalidValue;
+  }
+  constexpr size_t sa = smem_dq_wgmma<D>(), sb = smem_dkv_wgmma<D>();
+  cudaError_t e = cudaFuncSetAttribute(dq_wgmma_kernel<T, D>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sa);
+  if (e != cudaSuccess) return e;
+  e = cudaFuncSetAttribute(dkv_wgmma_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)sb);
   if (e != cudaSuccess) return e;
   const dim3 grid((S + BT - 1) / BT, H, B);
-  const T* x = static_cast<const T*>(qkv);
-  const T* g = static_cast<const T*>(dout);
   const uint8_t* m = static_cast<const uint8_t*>(mask);
-  float* st = static_cast<float*>(stats);
   T* out = static_cast<T*>(dqkv);
-  dq_kernel<T, D><<<grid, tc::THREADS, sa, stream>>>(x, g, static_cast<const T*>(fwd), m, st,
-                                                     out, S, W, H, scale);
+  dq_wgmma_kernel<T, D><<<grid, tc::THREADS, sa, stream>>>(
+      qkv_map, do_map, static_cast<const T*>(dout), static_cast<const float*>(o32),
+      static_cast<const float*>(stats), m, static_cast<float*>(rows), out, S, W, H, scale);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  dkv_kernel<T, D><<<grid, tc::THREADS, sb, stream>>>(x, g, m, st, out, S, W, H, scale);
+  dkv_wgmma_kernel<T, D><<<grid, tc::THREADS, sb, stream>>>(qkv_map, do_map, rows_map, m, out, S,
+                                                             W, H, scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// qkv [B, S, 3W], dout [B, S, W], fwd [B, S, W] (the forward's output; read
-// in f32, may be null in bf16) and dqkv [B, S, 3W] contiguous, all of type dtype (0 = f32,
-// 1 = bf16); mask [B, S] uint8 (1 = padding key); stats a scratch f32
-// [B, H, S, 3]. Launches (a) then (b) on `stream` and does not synchronise.
-// Returns cudaGetLastError() after the launches, or cudaErrorInvalidValue for
-// a shape or type the kernels do not take.
-extern "C" int packed_attention_backward(const void* qkv, const void* dout, const void* fwd,
-                                         const void* mask, void* stats, void* dqkv, int B,
-                                         int S, int W, int H, int dtype, float scale,
-                                         void* stream) {
-  if (B <= 0 || S <= 0 || H <= 0 || W % H != 0 || B > 65535 || H > 65535) {
+// qkv [B, S, 3W], dout [B, S, W] and dqkv [B, S, 3W] contiguous, of type
+// dtype (0 = f32, 1 = bf16), 16-byte aligned; from the forward (K1): o32
+// f32 [B, S, W] (its output before rounding) and stats f32 [B, H, S, 2]
+// (each row's max and 1/sum); mask [B, S] uint8 (1 = padding key); rows a
+// scratch f32 [B, H, S, 4]. Launches (a) then (b) on `stream` and does not
+// synchronise. Returns cudaGetLastError() after the launches, or
+// cudaErrorInvalidValue for a shape or type the kernels do not take.
+extern "C" int packed_attention_backward(const void* qkv, const void* dout, const void* o32,
+                                         const void* stats, const void* mask, void* rows,
+                                         void* dqkv, int B, int S, int W, int H, int dtype,
+                                         float scale, void* stream) {
+  if (B <= 0 || S <= 0 || H <= 0 || W % H != 0 || B > 65535 || H > 65535 || o32 == nullptr ||
+      stats == nullptr) {
     return (int)cudaErrorInvalidValue;
   }
   const int D = W / H;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && D == 64)
-    return (int)launch<float, 64>(qkv, dout, fwd, mask, stats, dqkv, B, S, W, H, scale, st);
+    return (int)launch_f32<64>(qkv, dout, o32, stats, mask, rows, dqkv, B, S, W, H, scale, st);
   if (dtype == 0 && D == 32)
-    return (int)launch<float, 32>(qkv, dout, fwd, mask, stats, dqkv, B, S, W, H, scale, st);
+    return (int)launch_f32<32>(qkv, dout, o32, stats, mask, rows, dqkv, B, S, W, H, scale, st);
   if (dtype == 1 && D == 64)
-    return (int)launch<__nv_bfloat16, 64>(qkv, dout, fwd, mask, stats, dqkv, B, S, W, H,
-                                          scale, st);
+    return (int)launch_wgmma<64>(qkv, dout, o32, stats, mask, rows, dqkv, B, S, W, H, scale, st);
   if (dtype == 1 && D == 32)
-    return (int)launch<__nv_bfloat16, 32>(qkv, dout, fwd, mask, stats, dqkv, B, S, W, H,
-                                          scale, st);
+    return (int)launch_wgmma<32>(qkv, dout, o32, stats, mask, rows, dqkv, B, S, W, H, scale, st);
   return (int)cudaErrorInvalidValue;
 }
 
 // Dynamic shared memory of one block of kernel (a) (which = 0) or (b)
 // (which = 1) for head width D and dtype, in bytes (0 where not taken).
 extern "C" int packed_attention_backward_smem_bytes(int D, int dtype, int which) {
-  if (dtype == 0 && D == 64) return (int)(which ? smem_b<float, 64>() : smem_a<float, 64>());
-  if (dtype == 0 && D == 32) return (int)(which ? smem_b<float, 32>() : smem_a<float, 32>());
-  if (dtype == 1 && D == 64)
-    return (int)(which ? smem_b<__nv_bfloat16, 64>() : smem_a<__nv_bfloat16, 64>());
-  if (dtype == 1 && D == 32)
-    return (int)(which ? smem_b<__nv_bfloat16, 32>() : smem_a<__nv_bfloat16, 32>());
+  if (dtype == 0 && D == 64) return (int)smem_f32<64>();
+  if (dtype == 0 && D == 32) return (int)smem_f32<32>();
+  if (dtype == 1 && D == 64) return (int)(which ? smem_dkv_wgmma<64>() : smem_dq_wgmma<64>());
+  if (dtype == 1 && D == 32) return (int)(which ? smem_dkv_wgmma<32>() : smem_dq_wgmma<32>());
   return 0;
 }

@@ -19,26 +19,30 @@
 // f32, so it is bound by operations: 4.77 ms at the 3xTF32 rate (495/3
 // TFLOP/s), 0.79 ms in bf16 (989 TFLOP/s).
 //
-// Design (FlashAttention-2's shape, by hand): tc::attention_forward in
-// mma_tile.cuh, which K1/K2 share in f32 on their packed layout. One block
-// of 4 warps per (64-row query tile, b*H + h); each warp owns 16 query rows.
-// Each head's K and V are one contiguous [S, D] slab, so 64-key tiles come
-// straight from global memory by 16-byte cp.async, double-buffered in padded
-// shared tiles. Per key tile a warp forms its 16 x 64 logits with mma.sync
-// into f32 accumulators, rounds scale and bias apart, runs the online
-// softmax in registers, and feeds P from the accumulators as the A operand
-// of P V, into fresh accumulators added with one rounding (see there).
-// Operations executed: f32 takes the two products in 3xTF32 (3 tf32 mma
-// each); bf16 takes Q K^T once and P V twice (P split into a bf16 hi + lo
-// pair, see mma_tile.cuh), 1.5x the bound's bf16 operations.
-// Shared memory: Q, and K, V twice: 5 tiles of 64 x (D + 16 bytes), 85 KB in
-// f32 (two blocks an SM) and 45 KB in bf16 at D = 64. Registers: 32 logit,
-// D/2 output and D/2 tile accumulators a thread, 166 (f32) and 133 (bf16) at
-// D = 64 with no spills; chip_smoke.py prints ptxas's counts.
+// Design. One block of 4 warps (one warpgroup) per (64-row query tile,
+// b*H + h); each warp owns 16 query rows.
+// - f32: FlashAttention-2's shape by hand, tc::attention_forward in
+//   mma_tile.cuh, which K1/K2 share in f32 on their packed layout. Each
+//   head's K and V are one contiguous [S, D] slab, so 64-key tiles come
+//   straight from global memory by 16-byte cp.async, double-buffered in
+//   padded shared tiles. Per key tile a warp forms its 16 x 64 logits with
+//   mma.sync (3xTF32) into f32 accumulators, rounds scale and bias apart,
+//   runs the online softmax in registers, and feeds P from the accumulators
+//   as the A operand of P V, into fresh accumulators added with one rounding
+//   (see there). 3 tf32 mma for each of the two products.
+// - bf16: K1's wgmma + TMA kernel body (wg::forward_tile in wgmma_tile.cuh),
+//   fed by three 3-D tensor maps over q, k, v as [B*H][S][D] with a box of
+//   (D, 64, 1): rows past S zero-fill within each (b, h), so no tile reads
+//   the next head's rows. S = Q K^T by wgmma.m64n64k16 from shared memory,
+//   P split into a bf16 hi + lo pair (see mma_tile.cuh) and multiplied twice
+//   by V read MN-major: 1.5x the bound's bf16 operations.
+// Shared memory at D = 64: f32 5 padded tiles of 64 x (D + 16 bytes), 85 KB
+// (two blocks an SM); bf16 Q and two stages of K, V, 41 KB. chip_smoke.py
+// prints each function's registers and spills.
 
 #include <math.h>
 
-#include "mma_tile.cuh"
+#include "wgmma_tile.cuh"
 
 namespace {
 
@@ -54,6 +58,46 @@ set_attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
                               blockIdx.x * tc::TILE, scale);
 }
 
+// bf16: K1's wgmma + TMA body on three maps over [B*H][S][D]
+template <typename T, int D>
+__global__ void __launch_bounds__(tc::THREADS)
+set_attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                           const __grid_constant__ CUtensorMap kmap,
+                           const __grid_constant__ CUtensorMap vmap,
+                           const uint8_t* __restrict__ mask, T* __restrict__ out, int H, int S,
+                           float scale) {
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ uint64_t bars[1 + 2 * wg::STAGES];
+  const int z = blockIdx.y;  // b*H + h
+  wg::forward_tile<D>(smem_raw, bars, qmap, kmap, vmap, 0, 0, 0, z,
+                      mask + (long long)(z / H) * S, out + (long long)z * S * D, D, nullptr, 0,
+                      nullptr, S, scale);
+}
+
+template <int D>
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v, const void* mask,
+                         void* out, int B, int H, int S, float scale, cudaStream_t stream) {
+  using T = __nv_bfloat16;
+  CUtensorMap maps[3];
+  const void* src[3] = {q, k, v};
+  for (int i = 0; i < 3; ++i) {
+    if (!tmap::tiles<D>(&maps[i], src[i], D, D, S, (uint64_t)B * H)) return cudaErrorInvalidValue;
+  }
+  constexpr size_t smem = wg::forward_smem_bytes<D>();
+  if (smem > 48 * 1024) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(set_attention_wgmma_kernel<T, D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  const dim3 grid((S + tc::TILE - 1) / tc::TILE, B * H);
+  set_attention_wgmma_kernel<T, D><<<grid, tc::THREADS, smem, stream>>>(
+      maps[0], maps[1], maps[2], static_cast<const uint8_t*>(mask), static_cast<T*>(out), H, S,
+      scale);
+  return cudaGetLastError();
+}
+
+// f32: tc::attention_forward, mma.sync through 3xTF32
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* mask, void* out,
                    int B, int H, int S, float scale, cudaStream_t stream) {
@@ -73,7 +117,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* mask
 }  // namespace
 
 // q, k, v and out [B, H, S, D] contiguous, all of type dtype (0 = f32,
-// 1 = bf16); mask [B, S] uint8 (1 = padding key). Launches on `stream` and
+// 1 = bf16), 16-byte aligned; mask [B, S] uint8 (1 = padding key). Launches on `stream` and
 // does not synchronise. Returns cudaGetLastError() after the launch, or
 // cudaErrorInvalidValue for a shape or type the kernel does not take.
 extern "C" int set_attention_forward(const void* q, const void* k, const void* v,
@@ -87,10 +131,8 @@ extern "C" int set_attention_forward(const void* q, const void* k, const void* v
     return (int)launch<float, 64>(q, k, v, mask, out, B, H, S, scale, st);
   if (dtype == 0 && D == 32)
     return (int)launch<float, 32>(q, k, v, mask, out, B, H, S, scale, st);
-  if (dtype == 1 && D == 64)
-    return (int)launch<__nv_bfloat16, 64>(q, k, v, mask, out, B, H, S, scale, st);
-  if (dtype == 1 && D == 32)
-    return (int)launch<__nv_bfloat16, 32>(q, k, v, mask, out, B, H, S, scale, st);
+  if (dtype == 1 && D == 64) return (int)launch_wgmma<64>(q, k, v, mask, out, B, H, S, scale, st);
+  if (dtype == 1 && D == 32) return (int)launch_wgmma<32>(q, k, v, mask, out, B, H, S, scale, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -99,7 +141,7 @@ extern "C" int set_attention_forward(const void* q, const void* k, const void* v
 extern "C" int set_attention_smem_bytes(int D, int dtype) {
   if (dtype == 0 && D == 64) return (int)tc::forward_smem_bytes<float, 64>();
   if (dtype == 0 && D == 32) return (int)tc::forward_smem_bytes<float, 32>();
-  if (dtype == 1 && D == 64) return (int)tc::forward_smem_bytes<__nv_bfloat16, 64>();
-  if (dtype == 1 && D == 32) return (int)tc::forward_smem_bytes<__nv_bfloat16, 32>();
+  if (dtype == 1 && D == 64) return (int)wg::forward_smem_bytes<64>();
+  if (dtype == 1 && D == 32) return (int)wg::forward_smem_bytes<32>();
   return 0;
 }

@@ -6,7 +6,9 @@ same masked attention as the packed kernel, on split heads q, k, v
 [B, H, S, D] -> [B, H, S, D]; scale 1/sqrt(D) of the true D; a key-padding
 bias of -1e9; f32 logits, softmax and accumulator. The transformer routes the
 mid-range set lengths here (``nn/transformer.py:attention_route``). The
-kernel is ``csrc/set_attention.cu``. With grad enabled the backward
+kernel is ``csrc/set_attention.cu``: f32 on ``mma.sync`` through 3xTF32,
+bf16 on K1's ``wgmma`` + TMA kernel body fed by tensor maps over the split
+heads. With grad enabled the backward
 recomputes through the plain version under autograd, as JAX's ``_bwd``
 recomputes through XLA.
 """

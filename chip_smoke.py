@@ -90,8 +90,8 @@ PEAK_BYTES = 3.35e12
 # K4 stays at the f32 rate.
 PEAK_FLOPS_ATTENTION = {"float32": 495e12 / 3, "bfloat16": 989e12}
 # Sources whose kernels run on the tensor cores: each kernel function in
-# their cubins must hold HMMA or HGMMA instructions; the bf16 functions of
-# packed_attention.cu HGMMA (wgmma) and UTMALDG (TMA) ones
+# their cubins must hold HMMA or HGMMA instructions, and each bf16 one
+# HGMMA (wgmma) and UTMALDG (TMA) ones
 TENSOR_CORE_SOURCES = ("set_attention", "packed_attention_bwd", "packed_attention")
 # |kernel - plain| <= REL * |plain| + ABS per element, the plain version run in
 # f32 on the same (for bf16: bf16-valued) inputs. A bf16 output is one
@@ -305,9 +305,14 @@ def phase_attention(torch, kernel, shapes, results):
             results.append(row)
             k1 = (f", K1 {row['packed_attention_ms']:.4f} ms" if "packed_attention_ms" in row
                   else "")
+            func = {"set_attention": "set_attention"}.get(kernel, "packed_attention")
+            func += "_wgmma_kernel" if name == "bfloat16" else "_kernel"
+            tag = "bf16" if name == "bfloat16" else "f32"
             log(f"{label} {name}: {text}; kernel {row['ms']:.4f} ms, plain "
                 f"{row['plain_ms']:.4f} ms, sdpa {row['library_ms']:.4f} ms{k1}, bound "
-                f"{row['bound_ms']:.4f} ms ({row['bound_by']}){simt_text(row)}")
+                f"{row['bound_ms']:.4f} ms ({row['bound_by']}){simt_text(row)}; "
+                + registers_text(kernel if kernel == "set_attention" else "packed_attention",
+                                 f"{func}<{tag}, D={W // H}>"))
             del qkv, mask
             torch.cuda.empty_cache()
 
@@ -328,17 +333,18 @@ def backward_bound(B, S, W, dtype_name, itemsize):
 
 
 def phase_backward(torch, results):
-    """K5 at ``K5_SHAPES`` in f32 and bf16, given the forward's output (K1's,
-    made outside the timed region, as training hands it over, and itself
-    held to K1's plain version with K1's bars, the training step's K1 at
-    the first shape): held per
+    """K5 at ``K5_SHAPES`` in f32 and bf16, given the forward's residuals
+    (K1's training launch, made outside the timed region, as training hands
+    them over: its output, itself held to K1's plain version with K1's
+    bars, the training step's K1 at the first shape; its output in f32 and
+    its rows' max and 1/sum, held to the plain version's): held per
     element to its plain version in f32 and to the same function with its
     sums in f64, the plain version's own drift from that logged beside (at
     ``K5_LONG``, where that drift leaves the bar, to the f64 sums alone);
-    timed beside the plain version, the SDPA backward (torch.autograd.grad
-    through scaled_dot_product_attention with the -1e9 float mask; its
-    forward runs outside the timed region) and K1's forward on the same
-    inputs."""
+    two launches bit-equal; timed beside the plain version, the SDPA
+    backward (torch.autograd.grad through scaled_dot_product_attention with
+    the -1e9 float mask; its forward runs outside the timed region) and K1's
+    forward on the same inputs, without and with the residuals."""
     import torch.nn.functional as F
 
     from brepgen_tpu_torch.kernels.attention import (
@@ -346,6 +352,7 @@ def phase_backward(torch, results):
         packed_attention_backward,
         packed_attention_backward_reference,
         packed_attention_reference,
+        packed_attention_with_stats,
     )
 
     gen = torch.Generator(device="cuda").manual_seed(5)
@@ -356,13 +363,24 @@ def phase_backward(torch, results):
             dout = torch.randn((B, S, W), generator=gen, device="cuda").to(dtype)
             mask = make_masks(torch, B, S, gen)
             label = f"kernel packed_attention_backward B={B} S={S} W={W} H={H}"
-            with torch.no_grad():
-                fwd = packed_attention(qkv, H, mask)
+            fwd, o32, stats = packed_attention_with_stats(qkv, H, mask)
+            want, m, inv_l = packed_attention_reference(qkv.float(), H, mask, with_stats=True)
             fwd_err, _, fwd_text = hold_to_plain(
-                torch, label.replace("_backward", "") + " (K5's input)", fwd.float(),
-                packed_attention_reference(qkv.float(), H, mask), qkv, mask, W, name)
+                torch, label.replace("_backward", "") + " (K5's input)", fwd.float(), want, qkv,
+                mask, W, name)
+            # the residuals: the f32 output within the forward's bar, m a max
+            # of the same f32 logits, 1/l an online sum in another order
+            stat_err = dict(o32=(o32 - want).abs().max().item(),
+                            m=(stats[..., 0] - m).abs().max().item(),
+                            inv_l_rel=((stats[..., 1] - inv_l).abs() / inv_l).max().item())
+            if (((o32 - want).abs() > REL[name] * want.abs() + ABS).any()
+                    or ((stats[..., 0] - m).abs() > 1e-6 * m.abs() + ABS).any()
+                    or stat_err["inv_l_rel"] > 1e-5 or not torch.equal(fwd, o32.to(dtype))):
+                raise AssertionError(f"{label} {name}: K1's residuals off the plain ones: "
+                                     f"{stat_err}")
+            del want, m, inv_l
             torch.cuda.empty_cache()
-            got = packed_attention_backward(qkv, dout, H, mask, out=fwd).double()
+            got = packed_attention_backward(qkv, dout, H, mask, out=o32, stats=stats).double()
             if not torch.isfinite(got).all():
                 raise AssertionError(f"{label} {name}: non-finite gradient")
             wants = dict(plain=packed_attention_backward_reference(
@@ -389,19 +407,19 @@ def phase_backward(torch, results):
                                          f"max_abs_err {err[ref]:.3e} (rows {errs[ref]}), "
                                          f"{over:.3e} over the bound; tolerance {tol}")
             del wants, want, diff
-            if name == "float32":
-                again = packed_attention_backward(qkv, dout, H, mask, out=fwd)
-                if not torch.equal(again, packed_attention_backward(qkv, dout, H, mask, out=fwd)):
-                    raise AssertionError(f"{label} {name}: two launches differ")
-                del again
+            again = packed_attention_backward(qkv, dout, H, mask, out=o32, stats=stats)
+            if not torch.equal(again, packed_attention_backward(qkv, dout, H, mask, out=o32,
+                                                                stats=stats)):
+                raise AssertionError(f"{label} {name}: two launches differ")
+            del again
             del got
             torch.cuda.empty_cache()
             row = dict(B=B, S=S, W=W, H=H, dtype=name, max_abs_err=err["plain"],
                        row_max_abs_err=errs["plain"], max_abs_err_f64=err["f64"],
                        plain_drift_f64=drift, held_to=list(held),
-                       packed_attention_max_abs_err=fwd_err)
-            row["ms"] = time_ms(
-                torch, lambda: packed_attention_backward(qkv, dout, H, mask, out=fwd), 10)
+                       packed_attention_max_abs_err=fwd_err, residual_err=stat_err)
+            row["ms"] = time_ms(torch, lambda: packed_attention_backward(
+                qkv, dout, H, mask, out=o32, stats=stats), 10)
             row["plain_ms"] = time_ms(torch, lambda: packed_attention_backward_reference(
                 qkv, dout, H, mask), 2)
             q, k, v = (a.detach().requires_grad_() for a in split_heads(qkv, H))
@@ -410,12 +428,16 @@ def phase_backward(torch, results):
             out = F.scaled_dot_product_attention(q, k, v, attn_mask=bias)
             row["library_ms"] = time_ms(torch, lambda: torch.autograd.grad(
                 out, (q, k, v), g, retain_graph=True), 3)
-            del q, k, v, g, bias, out, fwd
+            del q, k, v, g, bias, out, fwd, o32, stats
             with torch.no_grad():
                 row["packed_attention_ms"] = time_ms(
                     torch, lambda: packed_attention(qkv, H, mask), 10)
+                row["packed_attention_train_ms"] = time_ms(
+                    torch, lambda: packed_attention_with_stats(qkv, H, mask), 10)
             row.update(backward_bound(B, S, W, name, qkv.element_size()))
             results.append(row)
+            fn = "_wgmma_kernel" if name == "bfloat16" else "_kernel"
+            tag = f"<{'bf16' if name == 'bfloat16' else 'f32'}, D={W // H}>"
             log(f"{label} {name}: max_abs_err {err['plain']:.3e} (mean |plain| {mag:.3e}); by "
                 "rows: " + ", ".join(f"{k} {v:.3e}" for k, v in errs["plain"].items())
                 + f"; against the sums in f64 {err['f64']:.3e} ("
@@ -423,9 +445,12 @@ def phase_backward(torch, results):
                 + f"), the plain version's own drift from them {drift:.3e}"
                 + ("" if "plain" in held else " (past the bar: held to the f64 sums alone)")
                 + f"; tolerance {tol}; "
+                f"two launches bit-equal; K1's residuals against the plain ones {stat_err}; "
                 f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, sdpa backward "
-                f"{row['library_ms']:.4f} ms, K1 forward {row['packed_attention_ms']:.4f} ms "
-                f"({fwd_text}), bound {row['bound_ms']:.4f} ms ({row['bound_by']}){simt_text(row)}")
+                f"{row['library_ms']:.4f} ms, K1 forward {row['packed_attention_ms']:.4f} ms, "
+                f"with its residuals {row['packed_attention_train_ms']:.4f} ms "
+                f"({fwd_text}), bound {row['bound_ms']:.4f} ms ({row['bound_by']}){simt_text(row)}; "
+                + registers_text("packed_attention_bwd", "dq" + fn + tag, "dkv" + fn + tag))
             del qkv, dout, mask
             torch.cuda.empty_cache()
 
@@ -782,10 +807,27 @@ def phase_pipeline(torch, np, work):
         if summary["device_idle_share"] is None or trace.first_step != 10 or trace.last_step < 16:
             raise AssertionError(f"pipeline: trace of steps {trace.first_step}-"
                                  f"{trace.last_step}: {summary}")
+        # K5's and K1's kernels in the window: their share of device-busy time
+        from brepgen_tpu_torch.kernels import KERNEL_FUNCTIONS
+        with open(trace.path) as f:
+            kernel_events = [e for e in json.load(f)["traceEvents"]
+                             if e.get("ph") == "X" and e.get("cat") == "kernel"]
+        n_steps = trace.last_step - trace.first_step + 1
+        shares = {}
+        for wrapper in ("packed_attention_backward", "packed_attention"):
+            funcs = KERNEL_FUNCTIONS[wrapper][0]
+            hit = [float(e["dur"]) for e in kernel_events if any(f in e["name"] for f in funcs)]
+            shares[wrapper] = dict(ms=sum(hit) / 1e3, count=len(hit),
+                                   share=sum(hit) / 1e3 / summary["device_busy_ms"],
+                                   ms_per_step=sum(hit) / 1e3 / n_steps)
         runs["cached"]["trace"] = dict(summary, steps=[trace.first_step, trace.last_step],
-                                       megabytes=os.path.getsize(trace.path) / 2 ** 20)
+                                       megabytes=os.path.getsize(trace.path) / 2 ** 20,
+                                       kernel_shares=shares)
         log(f"pipeline: trace of steps {trace.first_step}-{trace.last_step} "
-            f"({os.path.getsize(trace.path) / 2 ** 20:.1f} MB): {format_summary(summary)}")
+            f"({os.path.getsize(trace.path) / 2 ** 20:.1f} MB): {format_summary(summary)}; "
+            + "; ".join(f"{w} kernels {v['ms']:.1f} ms x{v['count']}, {v['share']:.4f} of "
+                        f"device-busy time, {v['ms_per_step']:.2f} ms a step"
+                        for w, v in shares.items()))
         log(f"pipeline: edgez bf16 step with --cache_latents {runs['cached']['ms_per_step']:.1f} "
             f"ms, encoding in the step {runs['encoded']['ms_per_step']:.1f} ms; cache "
             + ", ".join(f"{k} {v['hits']} hits / {v['misses']} misses, one step's lookups "
@@ -2046,8 +2088,23 @@ def phase_rescore(torch, np, work):
                 chamfer_max_abs_err_real_clouds=real_errs, seconds=t4 - t0)
 
 
-KERNEL_NAMES = ("set_attention_kernel", "packed_attention_kernel",
-                "packed_attention_wgmma_kernel", "dkv_kernel", "dq_kernel", "chamfer_kernel")
+KERNEL_NAMES = ("set_attention_kernel", "set_attention_wgmma_kernel", "packed_attention_kernel",
+                "packed_attention_wgmma_kernel", "dkv_kernel", "dq_kernel", "dkv_wgmma_kernel",
+                "dq_wgmma_kernel", "chamfer_kernel")
+# (source, function label) -> (registers, spill stores, spill loads), from
+# build_report, for the kernel phases' lines
+REGISTERS = {}
+
+
+def registers_text(source, *labels):
+    """"dq_wgmma_kernel<bf16, D=64> 168 registers, 0/0 B spilled; ..." of
+    the given functions of ``source``."""
+    parts = []
+    for label in labels:
+        regs, st, ld = REGISTERS.get((source, label), (None, None, None))
+        parts.append(f"{label} {regs} registers, {st}/{ld} B spilled" if regs is not None
+                     else f"{label} registers not reported")
+    return "; ".join(parts)
 
 
 def kernel_label(mangled):
@@ -2097,8 +2154,9 @@ def build_report(_build, kernels):
     """One line per kernel function of each source: registers, spills,
     shared memory and its HMMA, HGMMA and UTMALDG instructions (from
     cuobjdump). A function of a tensor-core source with no HMMA or HGMMA
-    raises, and so does a bf16 function of packed_attention.cu without
-    HGMMA and UTMALDG. Returns {source: {function label: counts}} of the
+    raises, and so does a bf16 function of packed_attention.cu (K1/K2),
+    packed_attention_bwd.cu (K5) or set_attention.cu (K3) without HGMMA
+    and UTMALDG. Returns {source: {function label: counts}} of the
     tensor-core sources."""
     counts = {}
     for name in kernels:
@@ -2112,6 +2170,7 @@ def build_report(_build, kernels):
         lib = _build.load(name)
         for func, (regs, st, ld) in ptxas_table(report).items():
             label = kernel_label(func)
+            REGISTERS[(name, label)] = (regs, st, ld)
             smem = dynamic_smem(name, lib, label)
             n = None if sass is None else sass.get(func, dict.fromkeys(_build.SASS_OPCODES, 0))
             log(f"  {label} ({name}.cu): {regs} registers, spills {st} B stored / {ld} B "
@@ -2123,8 +2182,9 @@ def build_report(_build, kernels):
             if not labels or not all(n["HMMA"] + n["HGMMA"] for n in labels.values()):
                 raise AssertionError(f"{name}.cu: a kernel runs no tensor-core instruction "
                                      f"({labels})")
-            if name == "packed_attention" and not all(
-                    n["HGMMA"] and n["UTMALDG"] for k, n in labels.items() if "bf16" in k):
+            bf16 = {k: n for k, n in labels.items() if "bf16" in k}
+            if not bf16 or not all(
+                    n["HGMMA"] and n["UTMALDG"] for n in bf16.values()):
                 raise AssertionError(f"{name}.cu: a bf16 kernel runs no wgmma or no TMA "
                                      f"({labels})")
             counts[name] = labels

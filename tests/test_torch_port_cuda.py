@@ -31,6 +31,7 @@ from brepgen_tpu_torch.kernels.attention import (
     packed_attention_backward,
     packed_attention_backward_reference,
     packed_attention_reference,
+    packed_attention_with_stats,
     packed_flash_attention,
     packed_flash_attention_reference,
 )
@@ -323,9 +324,9 @@ def test_packed_backward_matches_plain_on_card(cuda, dtype, rel, S, W, H):
     dout = torch.from_numpy(dout).to(cuda, dtype)
     mask = torch.from_numpy(mask).to(cuda)
     with torch.no_grad():
-        out = packed_attention(qkv, H, mask)
+        _, out, stats = packed_attention_with_stats(qkv, H, mask)
     before = dict(LAUNCH_COUNTS)
-    got = packed_attention_backward(qkv, dout, H, mask, out=out)
+    got = packed_attention_backward(qkv, dout, H, mask, out=out, stats=stats)
     assert LAUNCH_COUNTS["packed_attention_backward"] == before["packed_attention_backward"] + 1
     assert LAUNCH_COUNTS["packed_attention"] == before["packed_attention"]
     assert _hold_backward(got, qkv, dout, H, mask, rel) or S == 1500
@@ -375,27 +376,30 @@ def test_packed_backward_rejects_unsupported_input(cuda):
     qkv = torch.zeros((2, 8, 3 * 64), device=cuda)
     dout = torch.zeros((2, 8, 64), device=cuda)
     d48 = torch.zeros((2, 8, 48), device=cuda)
+    st = torch.zeros((2, 1, 8, 2), device=cuda)
     with pytest.raises(ValueError):
         packed_attention_backward(torch.zeros((2, 8, 3 * 48), device=cuda), d48, 1,
-                                  out=d48)  # D = 48
+                                  out=d48, stats=st)  # D = 48
     with pytest.raises(ValueError):
-        packed_attention_backward(qkv, dout[:, :7], 1, out=dout)  # dout [B, S-1, W]
+        packed_attention_backward(qkv, dout[:, :7], 1, out=dout, stats=st)  # dout [B, S-1, W]
     with pytest.raises(ValueError):
-        packed_attention_backward(qkv, dout.bfloat16(), 1, out=dout)  # mixed types
+        packed_attention_backward(qkv, dout.bfloat16(), 1, out=dout, stats=st)  # mixed types
     with pytest.raises(ValueError):
-        packed_attention_backward(qkv, dout.cpu(), 1, out=dout)  # dout on another device
+        packed_attention_backward(qkv, dout.cpu(), 1, out=dout, stats=st)  # dout on another device
     with pytest.raises(ValueError):
         packed_attention_backward(qkv, torch.zeros((2, 64, 8), device=cuda).transpose(1, 2), 1,
-                                  out=dout)
+                                  out=dout, stats=st)
     with pytest.raises(ValueError):
-        packed_attention_backward(qkv, dout, 1, out=dout[:, :7])  # out [B, S-1, W]
+        packed_attention_backward(qkv, dout, 1, out=dout[:, :7], stats=st)  # out [B, S-1, W]
     with pytest.raises(ValueError):
-        packed_attention_backward(qkv, dout, 1, out=dout.bfloat16())  # out of another type
+        packed_attention_backward(qkv, dout, 1, out=dout.bfloat16(), stats=st)  # out not f32
+    with pytest.raises(ValueError):
+        packed_attention_backward(qkv, dout, 1, out=dout, stats=st[:, :, :7])  # stats [B, H, S-1]
     with pytest.raises(TypeError):
-        packed_attention_backward(qkv.half(), dout.half(), 1, out=dout.half())
+        packed_attention_backward(qkv.half(), dout.half(), 1, out=dout.half(), stats=st)
     with pytest.raises(ValueError):
         packed_attention_backward(qkv, dout, 1, torch.zeros((2, 7), dtype=torch.bool,
-                                                           device=cuda), out=dout)
+                                                           device=cuda), out=dout, stats=st)
 
 
 @pytest.mark.cuda
@@ -440,8 +444,8 @@ def test_packed_backward_tile_edges_on_card(cuda, dtype, rel, D, S):
     dout = torch.from_numpy(dout).to(cuda, dtype)
     mask = torch.from_numpy(mask).to(cuda)
     with torch.no_grad():
-        out = packed_attention(qkv, H, mask)
-    got = packed_attention_backward(qkv, dout, H, mask, out=out)
+        _, out, stats = packed_attention_with_stats(qkv, H, mask)
+    got = packed_attention_backward(qkv, dout, H, mask, out=out, stats=stats)
     assert _hold_backward(got, qkv, dout, H, mask, rel)
 
 
@@ -501,9 +505,9 @@ def test_packed_backward_is_deterministic_on_card(cuda, dtype):
     mask = torch.from_numpy(mask).to(cuda)
     dout = torch.randn((8, 600, 768), device=cuda).to(dtype)
     with torch.no_grad():
-        out = packed_attention(qkv, 12, mask)
-    first = packed_attention_backward(qkv, dout, 12, mask, out=out)
-    assert torch.equal(first, packed_attention_backward(qkv, dout, 12, mask, out=out))
+        _, out, stats = packed_attention_with_stats(qkv, 12, mask)
+    first = packed_attention_backward(qkv, dout, 12, mask, out=out, stats=stats)
+    assert torch.equal(first, packed_attention_backward(qkv, dout, 12, mask, out=out, stats=stats))
 
 
 def _large_logits(cuda, B, S, H, D, seed):
@@ -532,8 +536,8 @@ def test_f32_logits_near_30_take_the_3xtf32_split_on_card(cuda):
     assert ((got - packed_attention_reference(qkv, H, mask)).abs() <= 1e-4).all()
     dout = torch.randn((B, S, H * D), device=cuda)
     with torch.no_grad():
-        out = packed_attention(qkv, H, mask)
-    got = packed_attention_backward(qkv, dout, H, mask, out=out)
+        _, out, stats = packed_attention_with_stats(qkv, H, mask)
+    got = packed_attention_backward(qkv, dout, H, mask, out=out, stats=stats)
     assert _hold_backward(got, qkv, dout, H, mask, 0.0)
 
 

@@ -16,8 +16,10 @@ masked, truncated); a product sums lo*hi + hi*lo + hi*hi. bf16 inputs are
 exact in the products; P and dS, formed in f32, are split into a bf16 pair
 hi + lo. The kernels' tiles are emulated where they change the result: the
 forward's online softmax over 64-key tiles, and Delta = rowsum(dO o O) from
-the forward's output in f32 (bf16 takes Delta = rowsum(dP o P): a bf16 O
-would move it too far). Not emulated: the order of the f32 sums, and the
+the forward's output in f32 (a bf16 O would move it too far; K5 takes K1's
+unrounded f32 output in bf16 too, whose scheme
+``tests/test_torch_port_attention_stats.py`` emulates; ``emulate_backward``
+below takes Delta = rowsum(dP o P) in bf16, the other way to the bar). Not emulated: the order of the f32 sums, and the
 truncation of the tensor cores' own accumulation, which the kernels bound by
 adding each step of a long sum into its accumulator with one rounding to
 nearest; the card tests hold the kernels themselves to the same bars.
@@ -171,8 +173,9 @@ def test_backward_scheme_within_the_bar(dtype, B, S, W, H):
 
 
 def test_bf16_delta_from_the_rounded_output_exceeds_the_bar():
-    # why K5 in bf16 takes Delta from dP o P: from the forward's output
-    # rounded to bf16, dQ and dK move past the bar
+    # why K5 in bf16 does not take Delta from the forward's bf16 output
+    # (it takes K1's f32 output): from the output rounded to bf16, dQ and dK
+    # move past the bar
     B, S, W, H = SHAPES[0]
     dtype = torch.bfloat16
     qkv, dout, mask = _inputs(B, S, W, seed=S + 2 * W, dtype=dtype)

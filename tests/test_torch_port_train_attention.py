@@ -114,15 +114,19 @@ def _stand_in_launchers(monkeypatch):
     result detached, with no grad_fn, as a ctypes-filled output is."""
     calls = {"packed": 0, "backward": 0, "set": 0}
 
-    def launch(name, qkv, H, mask):
+    def launch(name, qkv, H, mask, residuals=False):
         calls["packed"] += 1
+        if residuals:  # K1's training launch: (out, o32, stats)
+            out, m, inv_l = kattn.packed_attention_reference(qkv, H, mask, with_stats=True)
+            return out.detach(), out.detach().float(), torch.stack([m, inv_l], -1).detach()
         plain = (kattn.packed_attention_reference if name == "packed_attention"
                  else kattn.packed_flash_attention_reference)
         return plain(qkv, H, mask).detach()
 
-    def launch_backward(qkv, dout, H, mask, out):
+    def launch_backward(qkv, dout, H, mask, out, stats):
         calls["backward"] += 1
-        return kattn.packed_attention_backward_reference(qkv, dout, H, mask).detach()
+        return kattn.packed_attention_backward_reference(qkv, dout, H, mask,
+                                                         stats=stats).detach()
 
     def launch_set(q, k, v, mask):
         calls["set"] += 1
