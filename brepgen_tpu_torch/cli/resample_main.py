@@ -28,6 +28,7 @@ threads, as the sample CLI does, and tallied in sample order.
 from __future__ import annotations
 
 import argparse
+import glob
 import json
 import os
 import time
@@ -66,7 +67,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "OUT/w<w>/<class>/batches.npz) for a later --from_dump")
     p.add_argument("--from_dump", default=None,
                    help="skip sampling: post-process the batches of a batches.npz written by "
-                        "--dump (or the sample CLI)")
+                        "--dump (or the sample CLI), or of the batches/ folder of an unbounded "
+                        "sample run")
     p.add_argument("--cf", action="store_true",
                    help="class-conditional packs: sample per class with CFG")
     p.add_argument("--classes", type=int, nargs="+", default=[1, 2, 3],
@@ -85,11 +87,17 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 
 def load_dump(path: str) -> List[Dict[str, np.ndarray]]:
-    """The batches of a ``batches.npz`` of ``{key}__{batch}`` arrays."""
-    with np.load(path) as raw:
-        n = 1 + max(int(k.rsplit("__", 1)[1]) for k in raw.files)
-        return [{k.rsplit("__", 1)[0]: raw[k] for k in raw.files if k.endswith(f"__{b}")}
-                for b in range(n)]
+    """The batches of a ``batches.npz`` of ``{key}__{batch}`` arrays, or of a
+    folder of such files (the ``batches/`` folder an unbounded sample run
+    writes, one file a batch)."""
+    files = sorted(glob.glob(os.path.join(path, "*.npz"))) if os.path.isdir(path) else [path]
+    raw = {}
+    for f in files:
+        with np.load(f) as z:
+            raw.update({k: z[k] for k in z.files})
+    n = 1 + max(int(k.rsplit("__", 1)[1]) for k in raw)
+    return [{k.rsplit("__", 1)[0]: v for k, v in raw.items() if k.endswith(f"__{b}")}
+            for b in range(n)]
 
 
 def generate(cascade: Cascade, batches: int, seed: int,

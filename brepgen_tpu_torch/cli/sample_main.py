@@ -19,9 +19,15 @@ joint optimization on the card) in a thread pool that overlaps the next
 batch's cascade, and written as STEP + STL to ``--save_folder``. With
 recovery (the default; ``--strict`` turns it off) a sample the reference
 semantics reject is retried through the recovery ladder. ``--num_samples N``
-stops after N valid B-reps (the JAX CLI's meaning). The raw batches also go
-to ``<save_folder>/batches.npz`` as ``{key}__{batch}`` arrays, the format
-``scripts/replay_postprocess.py`` reads.
+stops after N valid B-reps (the JAX CLI's meaning), ``--max_batches N``
+after N batches; with neither it samples until it is stopped (Ctrl-C or
+SIGTERM: the batch in flight finishes, the postprocess pool drains, the
+summary is printed and it exits 0), the JAX CLI's ``--num_samples 0``. The
+raw batches also go to ``<save_folder>`` as ``{key}__{batch}`` arrays, the
+format ``scripts/replay_postprocess.py`` and ``resample_main --from_dump``
+read: in one ``batches.npz`` at the end of a bounded run, and, without a
+limit, one ``batches/<batch>.npz`` as each batch finishes (nothing of them
+is kept in memory).
 
 Split sampling, the counterpart of the JAX CLI's mesh over several devices:
 started by ``torchrun --nproc_per_node N`` (one card a rank, NCCL), each
@@ -36,10 +42,13 @@ among the ranks, where the JAX CLI would silently run unsharded.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import os
 import random
+import signal
 import string
+import threading
 import time
 from concurrent.futures import FIRST_COMPLETED, Future, ThreadPoolExecutor, wait
 from typing import Callable, Dict, List, Optional
@@ -57,8 +66,8 @@ from brepgen_tpu_torch.cli.build import (
 )
 from brepgen_tpu_torch.geometry.brep_build import construct_brep
 from brepgen_tpu_torch.nn.layers import cast_compute
-from brepgen_tpu_torch.parallel.distributed import RowSplit, all_reduce_sum, launched, \
-    maybe_initialize_distributed
+from brepgen_tpu_torch.parallel.distributed import RowSplit, all_reduce_max, all_reduce_sum, \
+    launched, maybe_initialize_distributed
 from brepgen_tpu_torch.postprocess.pipeline import make_padded_decoder, postprocess_single
 from brepgen_tpu_torch.postprocess.vertex_merge import PostprocessError
 from brepgen_tpu_torch.sampling import Cascade, CascadeConfig, GeneratorNoise, RowNoise
@@ -68,6 +77,7 @@ from brepgen_tpu_torch.utils.profiling import TRACE_FILE, device_trace, format_s
 from brepgen_tpu_torch.weights import load_flax_params
 
 DENOISERS = ("surfpos", "surfz", "edgepos", "edgez")
+BATCH_DIR = "batches"  # an unbounded run's per-batch files, in the save folder
 PACKS = {"surface": "surf_vae.npz", "edge": "edge_vae.npz"}
 
 
@@ -198,7 +208,8 @@ def process_one(sample_np, batch_idx, surf_decode, edge_decode, z_threshold, sav
 class SampleRun:
     """What one ``sample_loop`` produced."""
 
-    batches: List[Dict[str, np.ndarray]]
+    batches: List[Dict[str, np.ndarray]]  # the raw batches (none kept without a limit)
+    n_batches: int = 0                  # batches run
     attempted: int = 0                  # samples sent to postprocess
     names: List[str] = dataclasses.field(default_factory=list)  # valid B-reps
     strict: int = 0                     # valid without the recovery ladder
@@ -235,7 +246,7 @@ class SampleRun:
 
     def report(self) -> str:
         lines = [f"produced {self.produced}/{self.attempted} valid B-reps from "
-                 f"{len(self.batches)} batches (strict {self.strict}, recovered "
+                 f"{self.n_batches} batches (strict {self.strict}, recovered "
                  f"{self.produced - self.strict}, solid {self.solid}) in {self.seconds:.2f} s"]
         if self.rungs:
             lines.append(f"recovery rungs: {dict(sorted(self.rungs.items()))}")
@@ -244,25 +255,74 @@ class SampleRun:
         return "\n".join(lines)
 
 
+class StopRequest:
+    """Set by SIGINT or SIGTERM while an unbounded ``sample_loop`` runs (a
+    second signal raises KeyboardInterrupt at once); the handlers are
+    installed from the main thread only and restored on exit."""
+
+    SIGNALS = (signal.SIGINT, signal.SIGTERM)
+
+    def __init__(self):
+        self.requested = False
+        self.saved = {}
+
+    def _handle(self, signum, frame):
+        if self.requested:
+            raise KeyboardInterrupt
+        self.requested = True
+        print(f"{signal.Signals(signum).name}: stopping after the batch in flight", flush=True)
+
+    def __enter__(self):
+        if threading.current_thread() is threading.main_thread():
+            self.saved = {s: signal.signal(s, self._handle) for s in self.SIGNALS}
+        return self
+
+    def __exit__(self, *exc):
+        for s, handler in self.saved.items():
+            signal.signal(s, handler)
+        return False
+
+
+def write_batch(save_folder: str, index: int, batch: Dict[str, np.ndarray]) -> str:
+    """``batch`` as ``{key}__{index}`` arrays in ``save_folder/batches/<index>.npz``,
+    written whole before it takes its name."""
+    folder = os.path.join(save_folder, BATCH_DIR)
+    os.makedirs(folder, exist_ok=True)
+    path = os.path.join(folder, f"{index:06d}.npz")
+    with open(path + ".tmp", "wb") as f:
+        np.savez_compressed(f, **{f"{k}__{index}": v for k, v in batch.items()})
+    os.replace(path + ".tmp", path)
+    return path
+
+
 def sample_loop(cascade: Cascade, num_samples: int = 0, max_batches: int = 0, seed: int = 0,
                 save_folder: Optional[str] = None, stage_times: Optional[Dict] = None,
                 after_stage: Optional[Callable[[str], None]] = None, postprocess: bool = True,
                 recovery: bool = True, workers: int = 8,
                 profile_dir: Optional[str] = None) -> SampleRun:
-    """Run batches until ``num_samples`` valid B-reps (0 = no limit) or
-    ``max_batches`` batches (0 = no limit). Each batch's samples are
-    post-processed in a pool of ``workers`` threads while the next batch
+    """Run batches until ``num_samples`` valid B-reps or ``max_batches``
+    batches; with neither (both 0) until it is stopped. Each batch's samples
+    are post-processed in a pool of ``workers`` threads while the next batch
     runs, and written as STEP + STL to ``save_folder``; the raw batches go
     to ``batches.npz`` there. ``postprocess=False`` runs the cascade alone
     and then counts raw samples against ``num_samples``. With
     ``profile_dir`` the second batch (the first captures or warms up) is
     traced into ``profile_dir/trace.json`` and its summary printed.
 
+    Without a limit (the JAX CLI's ``while True``) SIGINT or SIGTERM stops
+    the loop once the batch in flight is done (a KeyboardInterrupt in the
+    cascade stops it at once); the postprocess pool drains either way and
+    the run is returned. Memory stays bounded: each batch's raw arrays go to
+    ``save_folder/batches/<index>.npz`` as it finishes (``write_batch``)
+    and ``run.batches`` stays empty.
+
     A cascade with a ``row_split`` is one rank's share of split sampling:
     every rank calls this with the same arguments, stops at the same batch
-    (the counts are summed over the ranks), and returns the counts and
-    batches of all ranks (rank 0 writes ``batches.npz``)."""
+    (the counts, and a stop request, are reduced over the ranks), and
+    returns the counts and batches of all ranks (rank 0 writes the raw
+    batches)."""
     split = getattr(cascade, "row_split", None)
+    unbounded = not (num_samples or max_batches)
     if postprocess and not save_folder:
         raise ValueError("sample_loop: postprocess writes STEP/STL and needs a save_folder")
     if save_folder:
@@ -271,13 +331,16 @@ def sample_loop(cascade: Cascade, num_samples: int = 0, max_batches: int = 0, se
     noise = GeneratorNoise(gen)
     B = cascade.cfg.batch_size
     first = 0
+    main_rank = split is None or split.rank == 0
     if split is not None:
         noise = RowNoise(noise, split)
         first = split.rank * B  # global index of this rank's first row
     run = SampleRun(batches=[])
     surf_decode, edge_decode = host_decoders(cascade)
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max(workers, 1)) as pool:
+    stop = StopRequest()
+    with ThreadPoolExecutor(max(workers, 1)) as pool, \
+            (stop if unbounded else contextlib.nullcontext()):
         pending: List[Future] = []
 
         def collect(done):
@@ -285,44 +348,67 @@ def sample_loop(cascade: Cascade, num_samples: int = 0, max_batches: int = 0, se
                 run.add(*f.result())
                 pending.remove(f)
 
-        while True:
-            traced = profile_dir is not None and len(run.batches) == 1
-            with device_trace(profile_dir if traced else None):
-                out = cascade(noise, stage_times=stage_times, after_stage=after_stage)
-                sample_np = {k: v.cpu().numpy() for k, v in out.items()}
-            if traced:
-                path = os.path.join(profile_dir, TRACE_FILE)
-                print(f"profile: batch 1: {format_summary(summarize_trace(path))}; trace {path}",
-                      flush=True)
-            run.batches.append(sample_np)
-            if postprocess:
-                # host postprocess of batch k overlaps the cascade of batch k + 1
-                pending += [pool.submit(process_one, sample_np, b, surf_decode, edge_decode,
-                                        cascade.cfg.z_threshold, save_folder, recovery,
-                                        cascade.device, first + b) for b in range(B)]
-                run.attempted += B
-                collect([f for f in pending if f.done()])
-            count = run.produced if postprocess else len(run.batches) * B
-            if split is not None:  # every rank stops at the same batch
-                count = int(all_reduce_sum(torch.tensor([count], device=cascade.device)).item())
-            if (num_samples and count >= num_samples) or (
-                    max_batches and len(run.batches) >= max_batches):
-                break
-            # backpressure: the next batch starts once less than two batches
-            # of samples wait, so a postprocess slower than the cascade does
-            # not queue without bound
-            while len(pending) >= 2 * B:
-                collect(wait(pending, return_when=FIRST_COMPLETED).done)
+        try:
+            while True:
+                traced = profile_dir is not None and run.n_batches == 1
+                with device_trace(profile_dir if traced else None):
+                    out = cascade(noise, stage_times=stage_times, after_stage=after_stage)
+                    sample_np = {k: v.cpu().numpy() for k, v in out.items()}
+                if traced:
+                    path = os.path.join(profile_dir, TRACE_FILE)
+                    print(f"profile: batch 1: {format_summary(summarize_trace(path))}; trace "
+                          f"{path}", flush=True)
+                if not unbounded:
+                    run.batches.append(sample_np)
+                elif save_folder:
+                    whole = sample_np if split is None else gather_batch(sample_np)
+                    if main_rank:
+                        write_batch(save_folder, run.n_batches, whole)
+                run.n_batches += 1
+                if postprocess:
+                    # host postprocess of batch k overlaps the cascade of batch k + 1
+                    pending += [pool.submit(process_one, sample_np, b, surf_decode,
+                                            edge_decode, cascade.cfg.z_threshold, save_folder,
+                                            recovery, cascade.device, first + b)
+                                for b in range(B)]
+                    run.attempted += B
+                    collect([f for f in pending if f.done()])
+                count = run.produced if postprocess else run.n_batches * B
+                stopping = stop.requested
+                if split is not None:  # every rank stops at the same batch
+                    count = int(all_reduce_sum(torch.tensor([count],
+                                                            device=cascade.device)).item())
+                    stopping = bool(all_reduce_max(int(stopping), cascade.device))
+                if stopping or (num_samples and count >= num_samples) or (
+                        max_batches and run.n_batches >= max_batches):
+                    break
+                # backpressure: the next batch starts once less than two batches
+                # of samples wait, so a postprocess slower than the cascade does
+                # not queue without bound
+                while len(pending) >= 2 * B:
+                    collect(wait(pending, return_when=FIRST_COMPLETED).done)
+        except KeyboardInterrupt:
+            if not unbounded:
+                raise
+            print("interrupted: draining the postprocess pool", flush=True)
         collect(list(pending))
     run.seconds = time.perf_counter() - t0
     if split is not None:
         run = gather_runs(run)
-    if save_folder and (split is None or split.rank == 0):
+    if save_folder and not unbounded and main_rank:
         np.savez_compressed(
             os.path.join(save_folder, "batches.npz"),
             **{f"{k}__{bi}": v for bi, b in enumerate(run.batches) for k, v in b.items()},
         )
     return run
+
+
+def gather_batch(batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """The ranks' rows of one batch concatenated in rank order (the global
+    batch), on every rank."""
+    parts: List[Optional[Dict]] = [None] * torch.distributed.get_world_size()
+    torch.distributed.all_gather_object(parts, batch)
+    return {k: np.concatenate([p[k] for p in parts]) for k in batch}
 
 
 def gather_runs(run: SampleRun) -> SampleRun:
@@ -333,7 +419,7 @@ def gather_runs(run: SampleRun) -> SampleRun:
     torch.distributed.all_gather_object(runs, run)
     merged = SampleRun(batches=[{k: np.concatenate([r.batches[i][k] for r in runs])
                                  for k in run.batches[i]} for i in range(len(run.batches))],
-                       seconds=max(r.seconds for r in runs))
+                       n_batches=run.n_batches, seconds=max(r.seconds for r in runs))
     for r in runs:
         merged.merge(r)
     return merged
@@ -352,7 +438,10 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "when absent")
     p.add_argument("--num_samples", type=int, default=0,
                    help="stop after N valid B-reps (0 = no limit)")
-    p.add_argument("--max_batches", type=int, default=0)
+    p.add_argument("--max_batches", type=int, default=0,
+                   help="stop after N batches (0 = no limit); with neither limit it samples "
+                        "until Ctrl-C or SIGTERM, writing each batch to "
+                        "SAVE_FOLDER/batches/<batch>.npz")
     p.add_argument("--batch_size", type=int, default=None,
                    help="default: the mode's batch_size (16 in every preset)")
     p.add_argument("--seed", type=int, default=0)
@@ -373,8 +462,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "models dedup heavily; cuts the quadratic attention cost ~2x at ABC "
                         "scale)")
     p.add_argument("--small", action="store_true",
-                   help="tiny debug architecture, seeded unless --weights_dir is given (head "
-                        "width 16, which the CUDA kernels refuse: use it with --device cpu)")
+                   help="tiny debug architecture (width 32, 2 heads: head width 16), seeded "
+                        "unless --weights_dir is given")
     p.add_argument("--aot_cache", default=None,
                    help="DIR for the graphs.json manifest of the stages' CUDA graphs (on the "
                         "card each stage's denoiser call is captured once per input signature "
@@ -383,10 +472,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--profile", default=None,
                    help="torch.profiler trace of the second batch into DIR/trace.json, with "
                         "its device busy time, idle share and top kernels printed")
-    args = p.parse_args(argv)
-    if not (args.num_samples or args.max_batches):
-        p.error("give --num_samples or --max_batches")
-    return args
+    return p.parse_args(argv)
 
 
 def cascade_from_args(args: argparse.Namespace, row_split: Optional[RowSplit] = None

@@ -40,7 +40,7 @@ from brepgen_tpu_torch.kernels import _build
 
 NEG_INF = -1e9
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (32, 64)
+_HEAD_DIMS = (16, 32, 64)
 
 # Largest full-S K (or V) column block, in bytes of the compute type, that
 # the JAX package keeps resident in the packed kernel's VMEM

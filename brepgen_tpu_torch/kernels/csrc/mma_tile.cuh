@@ -41,6 +41,12 @@ constexpr int WARPS = 4;           // warps per block
 constexpr int THREADS = 32 * WARPS;
 constexpr int TILE = 16 * WARPS;   // rows of a block tile: 16 per warp
 
+// The key the launchers switch on: 100 * dtype + D for a pair the kernels
+// take (dtype 0 = f32, 1 = bf16; head width D 16, 32 or 64), else -1.
+__host__ __device__ constexpr int dispatch_key(int dtype, int D) {
+  return (dtype == 0 || dtype == 1) && (D == 16 || D == 32 || D == 64) ? 100 * dtype + D : -1;
+}
+
 // Row stride of a shared [TILE][D] tile of T, in elements: D plus 16 bytes.
 template <typename T, int D>
 __host__ __device__ constexpr int ld() { return D + 16 / (int)sizeof(T); }

@@ -51,7 +51,7 @@
 //   [B][S][3W] with a box of (D, 64, 1): rows past S zero-fill within each
 //   batch (a 2-D map over B*S rows would read the next batch's rows, and
 //   0 * NaN is NaN). The tiles land swizzled (128 bytes at D = 64, 64 at
-//   D = 32), the layout the wgmma matrix descriptors name. S = Q K^T by
+//   D = 32, 32 at D = 16), the layout the wgmma matrix descriptors name. S = Q K^T by
 //   wgmma.m64n64k16 with both operands K-major in shared memory; P is split
 //   into a bf16 hi + lo pair in registers (one bf16 rounding of P misses the
 //   bf16 bar) and multiplied twice by V, read MN-major through the transpose
@@ -66,6 +66,14 @@
 //   64-key tile against 12 wgmma, so exp takes ex2.approx (exp2f's range
 //   fix-up cost about a tenth of the time).
 //   bf16 executes 1.5x the bound's operations (P V twice).
+// Head widths 16, 32 and 64, each its own instantiation. D = 16 is the head
+// width of the entry check's flagship (width 64, 4 heads) and of the CLIs'
+// --small (width 32, 2 heads): the same 64-row tiles and online softmax,
+// Q K^T in one k-step (bf16: one wgmma.m64n64k16 on 32-byte swizzled rows;
+// f32: two k8 steps of mma.sync) and P V on wgmma.m64n16k16 (f32: two n8
+// blocks). A tile then does half the products per byte it stages, and the
+// softmax of its 64 x 64 logits, which does not shrink with D, weighs twice
+// as much against them.
 //
 // Training residuals. Where the caller passes `stats` (the training forward
 // under autograd), each (batch, head, row) gets its max m and 1/l in f32,
@@ -138,7 +146,7 @@ cudaError_t launch_wgmma(const void* qkv, const void* mask, void* out, void* o32
                          int B, int S, int W, int H, float scale, cudaStream_t stream) {
   using T = __nv_bfloat16;
   // qkv as [B][S][3W]; rows 6W bytes apart (a multiple of 16, as TMA needs,
-  // since D is 32 or 64)
+  // since D is 16, 32 or 64)
   CUtensorMap map;
   if (!tmap::tiles<D>(&map, qkv, 3ull * W, 3ull * W, S, B)) return cudaErrorInvalidValue;
   constexpr size_t smem = wg::forward_smem_bytes<D>();
@@ -176,21 +184,27 @@ extern "C" int packed_attention_forward(const void* qkv, const void* mask, void*
   }
   const int D = W / H;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && D == 64) return (int)launch_f32<64>(qkv, mask, out, stats, B, S, W, H, scale, st);
-  if (dtype == 0 && D == 32) return (int)launch_f32<32>(qkv, mask, out, stats, B, S, W, H, scale, st);
-  if (dtype == 1 && D == 64)
-    return (int)launch_wgmma<64>(qkv, mask, out, o32, stats, B, S, W, H, scale, st);
-  if (dtype == 1 && D == 32)
-    return (int)launch_wgmma<32>(qkv, mask, out, o32, stats, B, S, W, H, scale, st);
-  return (int)cudaErrorInvalidValue;
+  switch (tc::dispatch_key(dtype, D)) {
+    case 64: return (int)launch_f32<64>(qkv, mask, out, stats, B, S, W, H, scale, st);
+    case 32: return (int)launch_f32<32>(qkv, mask, out, stats, B, S, W, H, scale, st);
+    case 16: return (int)launch_f32<16>(qkv, mask, out, stats, B, S, W, H, scale, st);
+    case 164: return (int)launch_wgmma<64>(qkv, mask, out, o32, stats, B, S, W, H, scale, st);
+    case 132: return (int)launch_wgmma<32>(qkv, mask, out, o32, stats, B, S, W, H, scale, st);
+    case 116: return (int)launch_wgmma<16>(qkv, mask, out, o32, stats, B, S, W, H, scale, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // Dynamic shared memory of one block for head width D and dtype, in bytes
 // (0 for a combination the kernel does not take).
 extern "C" int packed_attention_smem_bytes(int D, int dtype) {
-  if (dtype == 0 && D == 64) return (int)tc::forward_smem_bytes<float, 64>();
-  if (dtype == 0 && D == 32) return (int)tc::forward_smem_bytes<float, 32>();
-  if (dtype == 1 && D == 64) return (int)wg::forward_smem_bytes<64>();
-  if (dtype == 1 && D == 32) return (int)wg::forward_smem_bytes<32>();
-  return 0;
+  switch (tc::dispatch_key(dtype, D)) {
+    case 64: return (int)tc::forward_smem_bytes<float, 64>();
+    case 32: return (int)tc::forward_smem_bytes<float, 32>();
+    case 16: return (int)tc::forward_smem_bytes<float, 16>();
+    case 164: return (int)wg::forward_smem_bytes<64>();
+    case 132: return (int)wg::forward_smem_bytes<32>();
+    case 116: return (int)wg::forward_smem_bytes<16>();
+    default: return 0;
+  }
 }

@@ -68,6 +68,9 @@
 // 5): 3 in (a) (logits, dP, dS K) and 4 in (b) (S^T, dP^T, P^T dO, dS^T Q),
 // 7 in all. f32 runs each as 3 tf32 mma; bf16 runs the three products whose
 // A operand is P or dS twice (the hi + lo pair), 10 bf16 products in all.
+// Head widths 16, 32 and 64, each its own instantiation: at D = 16 every
+// X Y^T is one k-step and every C Y a wgmma.m64n16k16 (f32: two k8 steps and
+// two n8 blocks), on the same 64-row tiles.
 // Shared memory at D = 64: bf16 (a) Q, dO and two stages of K, V, 48 KB,
 // (b) K, V and two stages of Q, dO and 64 scratch rows, 50 KB; f32 6 padded
 // tiles of 64 x (D + 16 bytes), 103 KB (two blocks an SM). chip_smoke.py
@@ -745,23 +748,29 @@ extern "C" int packed_attention_backward(const void* qkv, const void* dout, cons
   }
   const int D = W / H;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && D == 64)
-    return (int)launch_f32<64>(qkv, dout, o32, stats, mask, rows, dqkv, B, S, W, H, scale, st);
-  if (dtype == 0 && D == 32)
-    return (int)launch_f32<32>(qkv, dout, o32, stats, mask, rows, dqkv, B, S, W, H, scale, st);
-  if (dtype == 1 && D == 64)
-    return (int)launch_wgmma<64>(qkv, dout, o32, stats, mask, rows, dqkv, B, S, W, H, scale, st);
-  if (dtype == 1 && D == 32)
-    return (int)launch_wgmma<32>(qkv, dout, o32, stats, mask, rows, dqkv, B, S, W, H, scale, st);
-  return (int)cudaErrorInvalidValue;
+#define K5_ARGS qkv, dout, o32, stats, mask, rows, dqkv, B, S, W, H, scale, st
+  switch (tc::dispatch_key(dtype, D)) {
+    case 64: return (int)launch_f32<64>(K5_ARGS);
+    case 32: return (int)launch_f32<32>(K5_ARGS);
+    case 16: return (int)launch_f32<16>(K5_ARGS);
+    case 164: return (int)launch_wgmma<64>(K5_ARGS);
+    case 132: return (int)launch_wgmma<32>(K5_ARGS);
+    case 116: return (int)launch_wgmma<16>(K5_ARGS);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef K5_ARGS
 }
 
 // Dynamic shared memory of one block of kernel (a) (which = 0) or (b)
 // (which = 1) for head width D and dtype, in bytes (0 where not taken).
 extern "C" int packed_attention_backward_smem_bytes(int D, int dtype, int which) {
-  if (dtype == 0 && D == 64) return (int)smem_f32<64>();
-  if (dtype == 0 && D == 32) return (int)smem_f32<32>();
-  if (dtype == 1 && D == 64) return (int)(which ? smem_dkv_wgmma<64>() : smem_dq_wgmma<64>());
-  if (dtype == 1 && D == 32) return (int)(which ? smem_dkv_wgmma<32>() : smem_dq_wgmma<32>());
-  return 0;
+  switch (tc::dispatch_key(dtype, D)) {
+    case 64: return (int)smem_f32<64>();
+    case 32: return (int)smem_f32<32>();
+    case 16: return (int)smem_f32<16>();
+    case 164: return (int)(which ? smem_dkv_wgmma<64>() : smem_dq_wgmma<64>());
+    case 132: return (int)(which ? smem_dkv_wgmma<32>() : smem_dq_wgmma<32>());
+    case 116: return (int)(which ? smem_dkv_wgmma<16>() : smem_dq_wgmma<16>());
+    default: return 0;
+  }
 }

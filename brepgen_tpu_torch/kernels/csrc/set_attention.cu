@@ -36,6 +36,8 @@
 //   the next head's rows. S = Q K^T by wgmma.m64n64k16 from shared memory,
 //   P split into a bf16 hi + lo pair (see mma_tile.cuh) and multiplied twice
 //   by V read MN-major: 1.5x the bound's bf16 operations.
+// Head widths 16, 32 and 64, each its own instantiation (D = 16 as in
+// packed_attention.cu).
 // Shared memory at D = 64: f32 5 padded tiles of 64 x (D + 16 bytes), 85 KB
 // (two blocks an SM); bf16 Q and two stages of K, V, 41 KB. chip_smoke.py
 // prints each function's registers and spills.
@@ -127,21 +129,27 @@ extern "C" int set_attention_forward(const void* q, const void* k, const void* v
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && D == 64)
-    return (int)launch<float, 64>(q, k, v, mask, out, B, H, S, scale, st);
-  if (dtype == 0 && D == 32)
-    return (int)launch<float, 32>(q, k, v, mask, out, B, H, S, scale, st);
-  if (dtype == 1 && D == 64) return (int)launch_wgmma<64>(q, k, v, mask, out, B, H, S, scale, st);
-  if (dtype == 1 && D == 32) return (int)launch_wgmma<32>(q, k, v, mask, out, B, H, S, scale, st);
-  return (int)cudaErrorInvalidValue;
+  switch (tc::dispatch_key(dtype, D)) {
+    case 64: return (int)launch<float, 64>(q, k, v, mask, out, B, H, S, scale, st);
+    case 32: return (int)launch<float, 32>(q, k, v, mask, out, B, H, S, scale, st);
+    case 16: return (int)launch<float, 16>(q, k, v, mask, out, B, H, S, scale, st);
+    case 164: return (int)launch_wgmma<64>(q, k, v, mask, out, B, H, S, scale, st);
+    case 132: return (int)launch_wgmma<32>(q, k, v, mask, out, B, H, S, scale, st);
+    case 116: return (int)launch_wgmma<16>(q, k, v, mask, out, B, H, S, scale, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // Dynamic shared memory of one block for head width D and dtype, in bytes
 // (0 for a combination the kernel does not take).
 extern "C" int set_attention_smem_bytes(int D, int dtype) {
-  if (dtype == 0 && D == 64) return (int)tc::forward_smem_bytes<float, 64>();
-  if (dtype == 0 && D == 32) return (int)tc::forward_smem_bytes<float, 32>();
-  if (dtype == 1 && D == 64) return (int)wg::forward_smem_bytes<64>();
-  if (dtype == 1 && D == 32) return (int)wg::forward_smem_bytes<32>();
-  return 0;
+  switch (tc::dispatch_key(dtype, D)) {
+    case 64: return (int)tc::forward_smem_bytes<float, 64>();
+    case 32: return (int)tc::forward_smem_bytes<float, 32>();
+    case 16: return (int)tc::forward_smem_bytes<float, 16>();
+    case 164: return (int)wg::forward_smem_bytes<64>();
+    case 132: return (int)wg::forward_smem_bytes<32>();
+    case 116: return (int)wg::forward_smem_bytes<16>();
+    default: return 0;
+  }
 }

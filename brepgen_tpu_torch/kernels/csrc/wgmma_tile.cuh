@@ -7,7 +7,8 @@
 //
 // Tiles are [64 rows][D] bf16 in shared memory as TMA writes them from a
 // 3-D tensor map with a box of (D, 64, 1): rows 2D bytes long, swizzled over
-// 2D bytes (128 at D = 64, 64 at D = 32), each tile 1024-byte aligned. One
+// 2D bytes (128 at D = 64, 64 at D = 32, 32 at D = 16), each tile 1024-byte
+// aligned. One
 // tile serves both ways: K-major (the contraction along D) for products
 // X Y^T, MN-major through the transpose bit (the contraction along the 64
 // rows) for products C Y.
@@ -69,18 +70,22 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap& map, uint
 
 // wgmma matrix descriptor of a [64][D] bf16 tile as TMA wrote it: rows of
 // 2D bytes swizzled over 2D bytes (128B at D = 64: layout 1; 64B at D = 32:
-// layout 2), 8-row atoms 16D bytes apart. The atom stride is given as both
-// offsets: for a K-major operand it is the stride byte offset and the
-// leading one is unused; for an MN-major operand the 8-row atoms step along
-// K (one atom spans all D columns), which the hardware reads from the
-// leading offset. The tile starts 1024-byte aligned (base offset 0); a
-// k-step of 16 columns of a K-major tile adds 32 bytes to the start (2 in
-// the descriptor's 16-byte units), one of 16 rows of an MN-major tile 32D
-// bytes (2D units).
+// layout 2; 32B at D = 16: layout 3), 8-row atoms 16D bytes apart. At each D
+// an atom is 8 rows by the whole row, so a K-major k-step of 16 columns stays
+// inside one atom (at D = 16 the one k-step is the whole row) and an
+// MN-major tile holds one atom across its D columns. The atom stride is
+// given as both offsets: for a K-major operand it is the stride byte offset
+// and the leading one is unused; for an MN-major operand the 8-row atoms
+// step along K (one atom spans all D columns), which the hardware reads
+// from the leading offset. The tile starts 1024-byte aligned (base offset
+// 0); a k-step of 16 columns of a K-major tile adds 32 bytes to the start
+// (2 in the descriptor's 16-byte units), one of 16 rows of an MN-major tile
+// 32D bytes (2D units).
 template <int D>
 __device__ __forceinline__ uint64_t desc(const void* tile) {
   constexpr uint64_t atom = 16 * D >> 4;
-  constexpr uint64_t layout = D == 64 ? 1 : 2;
+  static_assert(D == 16 || D == 32 || D == 64, "head width 16, 32 or 64");
+  constexpr uint64_t layout = D == 64 ? 1 : D == 32 ? 2 : 3;
   return (uint64_t)((smem_addr(tile) & 0x3FFFF) >> 4) | atom << 16 | atom << 32 | layout << 62;
 }
 
@@ -157,6 +162,20 @@ __device__ __forceinline__ void mma_rs(float (&d)[4][4], const uint32_t (&a)[4],
       : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]),
         "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
         "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// the same at D = 16: m64n16k16, 8 accumulators a thread (two n8 column
+// blocks in the m16n8 layout); the register A fragments do not depend on N
+__device__ __forceinline__ void mma_rs(float (&d)[2][4], const uint32_t (&a)[4], uint64_t db,
+                                       int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]),
+        "+f"(d[1][2]), "+f"(d[1][3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
@@ -374,7 +393,9 @@ bool tiles(CUtensorMap* map, const void* base, uint64_t n0, uint64_t row, uint64
   const cuuint32_t unit[3] = {1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides,
                 box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                D == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                D == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+                : D == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                          : CU_TENSOR_MAP_SWIZZLE_32B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

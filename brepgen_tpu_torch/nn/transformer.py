@@ -26,6 +26,10 @@ Under data parallelism (``row_split``, a ``parallel.distributed.RowSplit``)
 each rank holds some rows of a global batch: its masks are drawn at the
 global batch's shape and its rows kept, so the ranks' union draws the masks
 of the single-process step (the JAX step draws them so under its mesh).
+Under tensor parallelism (``parallel/sharding_rules.py``) the FFN dropout
+acts on a rank's slice of the hidden units: its mask is drawn at the full
+FFN width and the rank's columns kept (``EncoderLayer.ffn_split``); the two
+masks on the residual stream are drawn whole, equal on the model ranks.
 """
 
 from __future__ import annotations
@@ -100,16 +104,23 @@ class MultiHeadSelfAttention(nn.Module):
 
 
 def dropout(x: torch.Tensor, rate: float, generator: torch.Generator,
-            row_split=None) -> torch.Tensor:
+            row_split=None, col_split=None) -> torch.Tensor:
     """Zero each element with probability ``rate`` and scale the rest by
     1 / (1 - rate), as flax's ``nn.Dropout``; the mask from ``generator``,
     drawn at the global batch's shape and cut to this rank's rows under a
-    ``row_split``."""
-    if row_split is None:
+    ``row_split``, and at the full feature width and cut to this rank's
+    columns (last dim) under a ``col_split`` (a tensor-parallel FFN slice)."""
+    if row_split is None and col_split is None:
         keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
     else:
-        shape = (row_split.global_rows(x.shape[0]), *x.shape[1:])
-        keep = row_split.take(torch.rand(shape, generator=generator, device=x.device)) >= rate
+        rows = x.shape[0] if row_split is None else row_split.global_rows(x.shape[0])
+        cols = x.shape[-1] if col_split is None else col_split.global_rows(x.shape[-1])
+        keep = torch.rand((rows, *x.shape[1:-1], cols), generator=generator, device=x.device)
+        if row_split is not None:
+            keep = row_split.take(keep)
+        if col_split is not None:
+            keep = keep[..., col_split.rows(cols)]
+        keep = keep >= rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -123,18 +134,21 @@ class EncoderLayer(nn.Module):
         self.norm2 = LayerNorm(width)
         self.fc1 = nn.Linear(width, ffn_width)
         self.fc2 = nn.Linear(ffn_width, width)
+        self.ffn_split = None  # this rank's FFN columns (tensor-parallel training)
 
     def forward(self, x, key_padding_mask=None, seed: Optional[int] = None, row_split=None):
         """``seed`` (training) seeds this layer's dropout masks; None runs
         without dropout. ``row_split``: see ``dropout``."""
-        if seed is None or self.dropout == 0.0:
-            drop = lambda h: h  # noqa: E731
-        else:
+        gen = None
+        if seed is not None and self.dropout != 0.0:
             gen = torch.Generator(device=x.device)
             gen.manual_seed(seed)
-            drop = lambda h: dropout(h, self.dropout, gen, row_split)  # noqa: E731
+
+        def drop(h, cols=None):
+            return h if gen is None else dropout(h, self.dropout, gen, row_split, cols)
+
         x = x + drop(self.attn(self.norm1(x), key_padding_mask))
-        return x + drop(self.fc2(drop(F.relu(self.fc1(self.norm2(x))))))
+        return x + drop(self.fc2(drop(F.relu(self.fc1(self.norm2(x))), self.ffn_split)))
 
 
 REMATS = (False, True, "full", "dots")

@@ -6,6 +6,12 @@ have a PyTorch meaning (``mesh.py`` says why the two sharding annotations
 are absent).
 """
 
-from brepgen_tpu_torch.parallel.mesh import make_mesh, replicate, shard_batch
+from brepgen_tpu_torch.parallel.mesh import (
+    data_parallel,
+    data_split,
+    make_mesh,
+    replicate,
+    shard_batch,
+)
 
-__all__ = ["make_mesh", "shard_batch", "replicate"]
+__all__ = ["make_mesh", "shard_batch", "replicate", "data_split", "data_parallel"]

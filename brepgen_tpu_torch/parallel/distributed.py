@@ -94,10 +94,15 @@ def shard_list_for_rank(items: Sequence) -> list:
 class RowSplit:
     """This rank's rows of a global batch: rank ``rank`` of ``world`` holds
     the rows ``rows(n)`` of a batch of ``n`` rows, the contiguous split of
-    ``numpy.array_split`` (equal shares when ``world`` divides ``n``)."""
+    ``numpy.array_split`` (equal shares when ``world`` divides ``n``).
+    ``group`` is the process group of the ``world`` ranks that split the
+    batch (None: the default group); on a data x model mesh it is the
+    ``data`` axis's, whose sums (``all_reduce_sum``) leave the model ranks
+    holding the same rows apart."""
 
     rank: int
     world: int
+    group: Optional[object] = dataclasses.field(default=None, compare=False, repr=False)
 
     @classmethod
     def of_group(cls) -> Optional["RowSplit"]:
@@ -118,10 +123,11 @@ class RowSplit:
         return local * self.world
 
 
-def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
-    """``x`` summed over the default group (in place); ``x`` without one."""
+def all_reduce_sum(x: torch.Tensor, group=None) -> torch.Tensor:
+    """``x`` summed over ``group`` (default: the default group), in place;
+    ``x`` without a process group."""
     if in_group():
-        dist.all_reduce(x, op=dist.ReduceOp.SUM)
+        dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
     return x
 
 

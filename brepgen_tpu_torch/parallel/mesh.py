@@ -7,8 +7,9 @@ a process holding one card: ``make_mesh`` names the ranks of the process
 group as a ``torch.distributed.device_mesh.DeviceMesh`` with the same axes,
 ``shard_batch`` keeps this rank's rows of the global batch and ``replicate``
 broadcasts a module's parameters and buffers from rank 0; the gradient
-all-reduce is ``DistributedDataParallel``'s (``train/loop.py``), and the
-``model`` axis is used by ``sharding_rules.shard_denoiser``.
+all-reduce is ``DistributedDataParallel``'s (``train/loop.py``; over the
+``data`` axis alone, ``data_parallel``, where a ``model`` axis splits the
+denoiser), and the ``model`` axis is used by ``sharding_rules.shard_denoiser``.
 
 Axes:
   data   -- batch split (gradient all-reduce by DistributedDataParallel)
@@ -48,15 +49,29 @@ def make_mesh(axis_shape: Optional[Tuple[int, ...]] = None,
     return init_device_mesh(device_type, tuple(axis_shape), mesh_dim_names=tuple(axis_names))
 
 
-def _data_split(mesh) -> RowSplit:
-    return RowSplit(mesh.get_local_rank("data"), mesh.size(mesh.mesh_dim_names.index("data")))
+def data_split(mesh) -> RowSplit:
+    """This rank's rows of a global batch split over the mesh's ``data``
+    axis, with that axis's group (its sums leave the ``model`` axis out)."""
+    return RowSplit(mesh.get_local_rank("data"), mesh.size(mesh.mesh_dim_names.index("data")),
+                    mesh.get_group("data"))
+
+
+def data_parallel(module: nn.Module, mesh) -> nn.Module:
+    """``module`` under ``DistributedDataParallel`` over the mesh's ``data``
+    axis only: on a data x model mesh the gradients are averaged over the
+    ranks that hold the same model slice, and the tensor-parallel sums stay
+    with ``sharding_rules``' operators."""
+    device = next(module.parameters()).device
+    return nn.parallel.DistributedDataParallel(
+        module, device_ids=[device] if device.type == "cuda" else None,
+        process_group=mesh.get_group("data"))
 
 
 def shard_batch(batch: Any, mesh) -> Any:
     """This rank's contiguous rows (dim 0) of every tensor or array of
     ``batch`` (a tensor, or a dict / tuple / list of them), split over the
     mesh's ``data`` axis."""
-    split = _data_split(mesh)
+    split = data_split(mesh)
     if isinstance(batch, dict):
         return {k: shard_batch(v, mesh) for k, v in batch.items()}
     if isinstance(batch, (tuple, list)):

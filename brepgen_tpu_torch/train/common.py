@@ -31,12 +31,26 @@ class ClippedAdamW:
                  eps: float = 1e-8, weight_decay: float = 1e-4, clip: float = 1.0):
         self.params = [p for p in params if p.requires_grad]
         self.clip = clip
+        self.last_norm = None  # the norm before clipping of the last step
         self.adamw = torch.optim.AdamW(self.params, lr=lr, betas=betas, eps=eps,
                                        weight_decay=weight_decay)
 
     def global_norm(self) -> torch.Tensor:
-        """sqrt of the sum of squares of every gradient (optax.global_norm)."""
-        return torch.sqrt(sum(torch.sum(p.grad.float() ** 2) for p in self.params))
+        """sqrt of the sum of squares of every gradient (optax.global_norm),
+        of the logical, unsharded gradients under tensor parallelism: the
+        squares of a parameter that ``parallel.sharding_rules`` split over
+        the ``model`` axis (its ``model_group``) are summed over that axis,
+        and a replicated parameter, whose gradient every model rank holds
+        whole, is counted once, as optax takes the norm of JAX's sharded
+        arrays."""
+        squares: dict = {}  # by model group; None: replicated
+        for p in self.params:
+            group = getattr(p, "model_group", None)
+            squares[group] = squares.get(group, 0) + torch.sum(p.grad.float() ** 2)
+        total = squares.pop(None, 0)
+        for group, part in squares.items():
+            total = total + all_reduce_sum(part, group)
+        return torch.sqrt(total)
 
     @torch.no_grad()
     def step(self) -> torch.Tensor:
@@ -51,6 +65,7 @@ class ClippedAdamW:
             p.grad.copy_(torch.where(keep, p.grad, p.grad / norm * self.clip))
         self.adamw.step()
         self.adamw.zero_grad(set_to_none=True)
+        self.last_norm = norm
         return norm
 
     def state_dict(self):
@@ -101,7 +116,7 @@ def masked_mse(pred: torch.Tensor, target: torch.Tensor, mask: torch.Tensor,
     count = (w * torch.ones_like(pred)).sum()
     if row_split is None:
         return se.sum() / torch.clamp(count, min=1.0)
-    count = all_reduce_sum(count.detach())
+    count = all_reduce_sum(count.detach(), row_split.group)
     return se.sum() / torch.clamp(count, min=1.0) * row_split.world
 
 
@@ -112,4 +127,4 @@ def global_mean(loss: torch.Tensor, row_split=None) -> torch.Tensor:
     loss = loss.detach()
     if row_split is None:
         return loss
-    return all_reduce_sum(loss.clone()) / row_split.world
+    return all_reduce_sum(loss.clone(), row_split.group) / row_split.world

@@ -8,9 +8,11 @@ Run from the repository root on a machine with one CUDA card:
 It builds the port's CUDA kernels from ``brepgen_tpu_torch/kernels/csrc`` with
 nvcc (one nvcc per source, started together) and holds each attention entry
 (K1 packed, K3 per-head, K2 long-set), the Chamfer kernel and the packed
-attention's backward (K5) against its plain PyTorch version on the card. After a small cascade on the card against
-the same one on the CPU it drives the port's own entry points: the deepcad
-and abc cascades at the production width (seeded weights, DDIM fast mode;
+attention's backward (K5) against its plain PyTorch version on the card, the
+attention kernels at head widths 64, 32 and 16. After small cascades on the
+card against the same ones on the CPU (the sample CLI's ``--small``
+architecture, head width 16, and width 64 with 2 heads) it drives the
+port's own entry points: the deepcad and abc cascades at the production width (seeded weights, DDIM fast mode;
 abc in f32 takes the per-head kernel), abc on the committed all160k packs
 without and with face-token compaction, a long set of 8400 tokens through
 the sample CLI's ``--config`` (the long-set kernel), the default PNDM + DDPM
@@ -56,6 +58,12 @@ against one process, split sampling (deepcad; abc compacted on one bucket)
 and the tensor-parallel edgez forward (6 heads a rank through K1) against
 the replicated one, while a reference-layout checkpoint goes through
 ``tools/convert_torch.py`` into a pack whose forward equals its source.
+Phase graft_entry runs ``brepgen_tpu_torch/graft_entry.py``: ``entry()`` (the
+flagship edgez denoiser, head width 16, through K1) against the CPU, then
+``dryrun_multichip(4)``: four gloo ranks sharing the card take the edgez
+step on a 2 x 2 data x model mesh (tensor-parallel training through K1/K5
+at head width 16), held to the same step in one process, and split the
+tiny cascade 4 ways against the unsharded one.
 The native host library (trimming) is built with g++ beside the kernels. It checks shapes,
 finiteness, masks, solids, agreement of the compacted and full runs, the
 gradients, and kernel launch counts. Each phase prints one line with its
@@ -103,9 +111,10 @@ MAX_ABS = {"float32": 1e-4, "bfloat16": 2e-2}
 # (B, S, W, H): K1 at the deepcad edge stages (ns x ne = 60 x 30), K3 at ABC
 # (100 x 40), K2 at the long set of phase long set (140 x 60); production and
 # demo widths each
-KERNEL_SHAPES = ((16, 1800, 768, 12), (4, 1800, 256, 8))
-K3_SHAPES = ((16, 4000, 768, 12), (4, 4000, 256, 8))
-K2_SHAPES = ((2, 8400, 768, 12), (4, 8400, 256, 8))
+# and head width 16 at width 32 with 2 heads (the CLIs' --small)
+KERNEL_SHAPES = ((16, 1800, 768, 12), (4, 1800, 256, 8), (16, 1800, 32, 2))
+K3_SHAPES = ((16, 4000, 768, 12), (4, 4000, 256, 8), (16, 4000, 32, 2))
+K2_SHAPES = ((2, 8400, 768, 12), (4, 8400, 256, 8), (2, 8400, 32, 2))
 DEEPCAD_STEPS, ABC_STEPS, LONG_STEPS = 25, 10, 4  # DDIM steps per stage of the seeded paths
 # Compacted against uncompacted abc on the card: the same kernels over other
 # key tiles and matrix shapes, so f32 sums in another order through 20
@@ -130,7 +139,8 @@ CHAMFER_REL, CHAMFER_ABS = 1e-5, 1e-7
 # shapes, K5's input, is held to K1's plain version with all the forward's
 # bars (MAX_ABS included): the first is the training step's K1.
 K5_LONG = (4, 1500, 768, 12)
-K5_SHAPES = ((128, 600, 768, 12), (64, 160, 256, 8), K5_LONG)
+# the last at head width 16: the entry check's flagship (width 64, 4 heads)
+K5_SHAPES = ((128, 600, 768, 12), (64, 160, 256, 8), K5_LONG, (128, 600, 64, 4))
 # Phase train: the CLI trains edgez at production width in bf16 on synthetic
 # solids at the deepcad training shape (train_ldm.sh:21-25), one step per
 # epoch (256 solids, batch 128, drop_last), one validation pass at the end
@@ -1505,6 +1515,88 @@ def dp_worker(torch, np, rank, init, out):
     return 0
 
 
+GRAFT_RANKS = 4  # dryrun_multichip's ranks: a 2 x 2 data x model mesh
+
+
+def phase_graft_entry(torch):
+    """``brepgen_tpu_torch/graft_entry.py`` on the card: ``entry()``'s
+    forward (the flagship edgez denoiser, head width 16, through K1) against
+    the same forward on the CPU at 1e-4, then ``dryrun_multichip(4)``: gloo
+    ranks sharing this card (NCCL where 4 cards are visible) take the edgez
+    step on a 2 x 2 data x model mesh through K1/K5 at D = 16, held to the
+    same step in one process with phase dp (b)'s bars (loss, clipped
+    gradients, parameters), the replicated gradients equal on the model
+    ranks, and the tiny cascade split 4 ways against the unsharded one at
+    1e-4. Returns its paths for the kernels line."""
+    from brepgen_tpu_torch import graft_entry
+    from brepgen_tpu_torch.kernels import LAUNCH_COUNTS, reset_launch_counts
+
+    fn, args = graft_entry.entry()
+    with torch.no_grad():
+        reset_launch_counts()
+        got = fn(*args)
+        torch.cuda.synchronize()
+        k1 = LAUNCH_COUNTS["packed_attention"]
+        cpu_fn, cpu_args = graft_entry.entry("cpu")
+        want = cpu_fn(*cpu_args)
+    err = (got.cpu() - want).abs().max().item()
+    layers = graft_entry.FLAGSHIP["num_layers"]
+    if not err <= 1e-4 or k1 != layers or fn.encoder.layer_0.attn.num_heads != 4:
+        raise AssertionError(f"graft_entry: entry() on the card against the CPU max abs diff "
+                             f"{err:.3e} (bar 1e-4), K1 {k1} launches for {layers} layers")
+    log(f"graft_entry: entry() (edgez flagship, width 64, 4 heads: D=16, B=2, S=12) on the "
+        f"card through K1 ({k1} launches) against the CPU: max abs diff {err:.3e} (bar 1e-4), "
+        f"output {tuple(got.shape)}")
+    del fn, got
+    t = time.perf_counter()
+    rep = graft_entry.dryrun_multichip(GRAFT_RANKS)
+    seconds = time.perf_counter() - t
+    train, sampling = rep["train"], rep["sampling"]
+    launches = train["launches"]
+    loss_rel = {k: abs(train["metrics"][k] - v) / abs(v) for k, v in train["ref_metrics"].items()}
+    bad = [r for r, c in enumerate(launches) if not (c["packed_attention"] and
+                                                      c["packed_attention_backward"])]
+    if (train["mesh"] != [["data", 2], ["model", 2]] or bad
+            or max(loss_rel.values()) > DP_LOSS_RTOL or train["grad_rel"] > GRAD_REL
+            or train["param_max_abs_diff"] > DP_PARAM_ATOL
+            or train["param_max_abs_diff_unresolved"] > 2 * DP_LR
+            or train["replicated_grad_max_diff"] != 0.0
+            or not all(sampling["k1_per_rank"])):
+        raise AssertionError(f"graft_entry: dryrun_multichip({GRAFT_RANKS}): mesh "
+                             f"{train['mesh']}, launches {launches} (none at ranks {bad}), "
+                             f"loss relative {loss_rel} (bar {DP_LOSS_RTOL:g}), gradients' "
+                             f"global relative difference {train['grad_rel']:.3e} (bar "
+                             f"{GRAD_REL:g}), parameters {train['param_max_abs_diff']:.3e} / "
+                             f"{train['param_max_abs_diff_unresolved']:.3e}, replicated "
+                             f"gradients {train['replicated_grad_max_diff']:.3e}, sampling K1 "
+                             f"{sampling['k1_per_rank']}")
+    log(f"graft_entry: dryrun_multichip({GRAFT_RANKS}) over {rep['backend']} ranks sharing "
+        f"this card in {seconds:.2f} s: train mesh (data 2, model 2), B={train['B']}, edgez "
+        f"f32 step at D=16 (2 of 4 heads a rank): loss {train['metrics']['loss']:.7f} against "
+        f"{train['ref_metrics']['loss']:.7f} in one process (relative "
+        f"{max(loss_rel.values()):.2e}, bar {DP_LOSS_RTOL:g}), clip norm {train['norm']:.6f} / "
+        f"{train['ref_norm']:.6f}, gradients gathered over model max abs diff "
+        f"{train['grad_max_abs_diff']:.3e} (global relative {train['grad_rel']:.3e}, bar "
+        f"{GRAD_REL:g}), parameters {train['param_max_abs_diff']:.3e} where the gradient is "
+        f"resolved (bar {DP_PARAM_ATOL:g}), {train['param_max_abs_diff_unresolved']:.3e} at the "
+        f"{train['unresolved_elements']} others (bar {2 * DP_LR:g}), replicated gradients "
+        f"equal on the model ranks; K1/K5 launches by rank "
+        + ", ".join(f"{c['packed_attention']}/{c['packed_attention_backward']}" for c in launches)
+        + f"; sampling: tiny cascade (D=16) split 4 ways, max abs diff "
+        f"{sampling['max_abs_diff']:.3e} to the unsharded one (bar 1e-4), K1 by rank "
+        f"{sampling['k1_per_rank']}")
+    return dict(
+        entry=dict(path="graft_entry entry() (edgez flagship, W=64 H=4, D=16, B=2, S=12)",
+                   launches=k1, max_abs_diff=err),
+        train=dict(path="graft_entry dryrun_multichip(4) train (edgez f32 step, 2 x 2 data x "
+                        "model mesh, D=16; per rank)", launches=launches,
+                   seconds=seconds, **{k: v for k, v in train.items()
+                                       if k not in ("launches", "grad_diff", "param_diff")}),
+        sampling=dict(path="graft_entry dryrun_multichip(4) sampling (tiny cascade, D=16, split "
+                           "4 ways; per rank)", launches=sampling["k1_per_rank"],
+                      max_abs_diff=sampling["max_abs_diff"]))
+
+
 def chamfer_bound(S, R, P, n):
     """S*R*n^2 distances x 8 FLOP (3 sub, 3 mul, 2 add) in f32 against each
     cloud read once and the matrix written once. Each point-pair distance
@@ -1635,41 +1727,66 @@ class CpuNoise:
         return self.torch.randn(tuple(shape), generator=self.gen).to(self.device)
 
 
+SMALL_ARCHS = {  # phase small: name -> (denoiser widths, VAE widths)
+    "--small (width 32, 2 heads: head width 16)": (
+        dict(width=32, num_heads=2, ffn_width=64, num_layers=1), ((8, 8, 8, 8), (8, 8, 8))),
+    "width 64, 2 heads, 2 layers": (
+        dict(width=64, num_heads=2, ffn_width=128, num_layers=2), ((8, 8, 8, 8), (8, 8, 8))),
+}
+
+
 def phase_small(torch):
-    """A small cascade (width 64, 2 heads, 2 layers) on the card through the
-    kernel against the same cascade on the CPU through the plain version."""
+    """Small cascades on the card through the kernel against the same
+    cascades on the CPU through the plain version: the sample CLI's
+    ``--small`` architecture (head width 16) and width 64 with 2 heads.
+    Returns one path a cascade (K1 launches on the card)."""
     from brepgen_tpu_torch import nn as tnn
     from brepgen_tpu_torch.cli.build import build_denoiser, seed_weights
+    from brepgen_tpu_torch.kernels import LAUNCH_COUNTS, reset_launch_counts
     from brepgen_tpu_torch.sampling import Cascade, CascadeConfig
 
     cfg = CascadeConfig(batch_size=2, num_surfaces=6, num_edges=5, pndm_steps=20,
                         pos_pndm_calls=16, ddpm_tail=10)
-    arch = dict(width=64, num_heads=2, ffn_width=128, num_layers=2)
-    outs = {}
-    for device in ("cpu", "cuda"):
-        gen = torch.Generator().manual_seed(0)
-        nets = {s: seed_weights(build_denoiser(s, arch="demo", **arch), gen).to(device).eval()
-                for s in ("surfpos", "surfz", "edgepos", "edgez")}
-        vaes = [seed_weights(m, gen).to(device).eval()
-                for m in (tnn.SurfVAE((8, 8, 8, 8)), tnn.EdgeVAE((8, 8, 8)))]
-        out = Cascade(nets, *vaes, cfg)(CpuNoise(torch, device))
-        outs[device] = {k: v.cpu() for k, v in out.items()}
     # f32 on two devices: summation orders differ through 160 denoiser calls
     tol = 1e-3
-    for k, want in outs["cpu"].items():
-        got = outs["cuda"][k]
-        if want.dtype == torch.bool:
-            if not torch.equal(got, want):
-                raise AssertionError(f"small cascade: {k} differs between card and CPU")
-        else:
-            err = (got - want).abs().max().item()
-            if not err <= tol:
-                raise AssertionError(f"small cascade: {k} max abs diff {err:.3e} > {tol:g}")
-    err = max((outs["cuda"][k] - v).abs().max().item() for k, v in outs["cpu"].items()
-              if v.dtype != torch.bool)
-    log(f"small cascade (B=2, ns=12, ne=5, width 64, PNDM 20): card through the kernel "
-        f"against CPU through the plain version: masks equal, max abs diff {err:.3e} "
-        f"(tolerance {tol:g})")
+    paths = []
+    for name, (arch, (surf_ch, edge_ch)) in SMALL_ARCHS.items():
+        outs = {}
+        for device in ("cpu", "cuda"):
+            gen = torch.Generator().manual_seed(0)
+            nets = {s: seed_weights(build_denoiser(s, arch="demo", **arch), gen).to(device).eval()
+                    for s in ("surfpos", "surfz", "edgepos", "edgez")}
+            vaes = [seed_weights(m, gen).to(device).eval()
+                    for m in (tnn.SurfVAE(surf_ch), tnn.EdgeVAE(edge_ch))]
+            cascade = Cascade(nets, *vaes, cfg)
+            reset_launch_counts()
+            out = cascade(CpuNoise(torch, device))
+            outs[device] = {k: v.cpu() for k, v in out.items()}
+        k1 = LAUNCH_COUNTS["packed_attention"]
+        calls = cascade.model_calls["edgepos"] + cascade.model_calls["edgez"]
+        if k1 != calls * arch["num_layers"]:
+            raise AssertionError(f"small cascade {name}: K1 {k1} launches for {calls} edge "
+                                 f"calls of {arch['num_layers']} layers")
+        for k, want in outs["cpu"].items():
+            got = outs["cuda"][k]
+            if want.dtype == torch.bool:
+                if not torch.equal(got, want):
+                    raise AssertionError(f"small cascade {name}: {k} differs between card and "
+                                         f"CPU")
+            else:
+                err = (got - want).abs().max().item()
+                if not err <= tol:
+                    raise AssertionError(f"small cascade {name}: {k} max abs diff {err:.3e} > "
+                                         f"{tol:g}")
+        err = max((outs["cuda"][k] - v).abs().max().item() for k, v in outs["cpu"].items()
+                  if v.dtype != torch.bool)
+        D = arch["width"] // arch["num_heads"]
+        log(f"small cascade {name} (B=2, ns=12, ne=5, PNDM 20): card through K1 at D={D} "
+            f"({k1} launches) against CPU through the plain version: masks equal, max abs "
+            f"diff {err:.3e} (tolerance {tol:g})")
+        paths.append(dict(path=f"small cascade {name}, card against CPU", launches=k1,
+                          head_width=D, max_abs_diff=err))
+    return paths
 
 
 def check_batch(np, out, B, ns, ne):
@@ -2267,7 +2384,7 @@ def main(argv=None) -> int:
     log(f"phase kernel chamfer done in {time.perf_counter() - t:.2f} s")
 
     t = time.perf_counter()
-    phase_small(torch)
+    small_paths = phase_small(torch)
     log(f"phase small done in {time.perf_counter() - t:.2f} s")
 
     paths = {k: [] for k in ATTENTION_KERNELS}
@@ -2393,6 +2510,10 @@ def main(argv=None) -> int:
         log(f"phase dp done in {time.perf_counter() - t:.2f} s")
         dp_a = dict(path="dp (a) (torchrun --nproc_per_node 1 ldm_main --dp, NCCL, edgez, "
                          "production width, bf16, B=128, S=600)", **dp["a"])
+        t = time.perf_counter()
+        graft = phase_graft_entry(torch)
+        torch.cuda.empty_cache()
+        log(f"phase graft_entry done in {time.perf_counter() - t:.2f} s")
         dp_paths = [
             dict(path="dp (b) (split edgez step, f32, B=128 as 64 + 64 over 2 gloo ranks on "
                       "one card; per rank)", launches=dp["b"]["launches"]["packed_attention"],
@@ -2421,7 +2542,10 @@ def main(argv=None) -> int:
                          dict(pipeline_path, launches=cached["k1_launches"]),
                          dict(step_path, launches=step["train"]["k1_launches"]),
                          dict(dp_a, launches=dp["a"]["launches"]["packed_attention"])]
-                     + dp_paths,
+                     + dp_paths + small_paths + [
+                         graft["entry"], graft["sampling"],
+                         dict(graft["train"], launches=[
+                             c["packed_attention"] for c in graft["train"]["launches"]])],
                      tensor_core_instructions=tensor_cores.get("packed_attention")),
         kernel_entry("packed_flash_attention", csrc + "packed_attention.cu",
                      "brepgen_tpu/kernels/attention.py:261",
@@ -2447,7 +2571,10 @@ def main(argv=None) -> int:
                                        dict(dp_a, launches=dp["a"]["launches"][
                                            "packed_attention_backward"]),
                                        dict(dp_paths[0], launches=dp["b"]["launches"][
-                                           "packed_attention_backward"])],
+                                           "packed_attention_backward"]),
+                                       dict(graft["train"], launches=[
+                                           c["packed_attention_backward"]
+                                           for c in graft["train"]["launches"]])],
                      packed_attention_ms=backward_shapes[0]["packed_attention_ms"],
                      tensor_core_instructions=tensor_cores.get("packed_attention_bwd")),
     ]}), flush=True)

@@ -9,7 +9,11 @@ run eagerly on the same noise. ``test_step_ingestion_of_card_exports`` runs
 legs (a)-(c) of ``chip_smoke.py``'s phase step on STEP files a cascade on
 the card exports. The multi-GPU tests run ``ldm_main --dp`` under torchrun
 at world size 1 over NCCL, and a split train step over two gloo ranks sharing
-the card (``tests/torch_port_dist.py``).
+the card (``tests/torch_port_dist.py``). The ``d16`` tests hold every
+attention kernel at head width 16 (the entry check's flagship and the CLIs'
+``--small``) to its plain version: K1/K2/K3 and K5 at ragged S, at the
+shapes ``chip_smoke.py`` measures, and against reads past their batch or
+head.
 
 Marked ``cuda``: they skip without a card. This file imports no JAX, so it
 also runs on a machine without it (``--noconftest`` skips the JAX set-up of
@@ -25,6 +29,7 @@ import numpy as np
 import pytest
 import torch
 
+import test_torch_port_hopper_attention as hopper  # the card helpers; imports no JAX
 from brepgen_tpu_torch.kernels import LAUNCH_COUNTS
 from brepgen_tpu_torch.kernels.attention import (
     packed_attention,
@@ -96,7 +101,7 @@ def test_kernel_matches_plain_on_card(cuda, dtype, rel, S, W, H):
 @pytest.mark.cuda
 def test_kernel_rejects_unsupported_input(cuda):
     with pytest.raises(ValueError):
-        packed_attention(torch.zeros((1, 8, 3 * 48), device=cuda), 3)  # D = 16
+        packed_attention(torch.zeros((1, 8, 3 * 96), device=cuda), 2)  # D = 48
     with pytest.raises(TypeError):
         packed_attention(torch.zeros((1, 8, 3 * 64), device=cuda, dtype=torch.float16), 2)
 
@@ -925,3 +930,89 @@ def test_split_step_over_two_gloo_ranks_on_card(cuda, tmp_path):
                     live = (g > 1e-6) & (g > (grads[k] - want_grads[k]).abs())
                     assert not live.any() or diff[live].max() <= 2.5e-4, k
                 assert diff.max() <= 2 * 5e-4, k
+
+
+# ---- head width 16 (the entry check's flagship: width 64, 4 heads; the
+# CLIs' --small: width 32, 2 heads): every kernel natively, f32 and bf16
+
+DTYPE_RELS = [(torch.float32, 0.0), (torch.bfloat16, 2.0 ** -8)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rel", DTYPE_RELS)
+@pytest.mark.parametrize("S", TILE_EDGES)
+@pytest.mark.parametrize("entry", ["packed_attention", "packed_flash_attention"])
+def test_d16_packed_attention_tile_edges_on_card(cuda, entry, dtype, rel, S):
+    test_packed_attention_tile_edges_on_card(cuda, entry, dtype, rel, 16, S)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rel", DTYPE_RELS)
+@pytest.mark.parametrize("S", TILE_EDGES)
+def test_d16_set_attention_tile_edges_on_card(cuda, dtype, rel, S):
+    test_set_attention_tile_edges_on_card(cuda, dtype, rel, 16, S)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rel", DTYPE_RELS)
+@pytest.mark.parametrize("S", TILE_EDGES)
+def test_d16_packed_backward_tile_edges_on_card(cuda, dtype, rel, S):
+    test_packed_backward_tile_edges_on_card(cuda, dtype, rel, 16, S)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rel", DTYPE_RELS)
+@pytest.mark.parametrize("kernel,B,S,W,H", [
+    ("packed_attention", 16, 1800, 32, 2), ("packed_flash_attention", 2, 8400, 32, 2),
+    ("set_attention", 16, 4000, 32, 2), ("packed_attention", 2, 120, 64, 4)])
+def test_d16_forward_kernels_at_the_measured_shapes_on_card(cuda, kernel, dtype, rel, B, S,
+                                                            W, H):
+    # K1 at the --small deepcad edge stage, K2 at the long set, K3 at ABC,
+    # K1 at the entry check's flagship (width 64, 4 heads): one launch each,
+    # against the plain version in f32 on the same (bf16-valued) inputs
+    qkv, mask = _inputs(B, S, W, seed=S + W)
+    qkv = torch.from_numpy(qkv).to(cuda, dtype)
+    mask = torch.from_numpy(mask).to(cuda)
+    before = LAUNCH_COUNTS[kernel]
+    if kernel == "set_attention":
+        q, k, v = hopper._heads(qkv, H)
+        got = set_attention(q, k, v, mask).transpose(1, 2).reshape(B, S, W).float()
+    else:
+        got = {"packed_attention": packed_attention,
+               "packed_flash_attention": packed_flash_attention}[kernel](qkv, H, mask).float()
+    assert LAUNCH_COUNTS[kernel] == before + 1
+    want = packed_attention_reference(qkv.float(), H, mask)
+    assert ((got - want).abs() <= rel * want.abs() + 1e-4).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S", [65, 601])
+def test_d16_kernels_read_nothing_of_the_next_batch_or_head_on_card(cuda, dtype, S):
+    test_packed_attention_reads_nothing_of_the_next_batch_on_card(cuda, dtype, 16, S)
+    hopper.test_k5_reads_nothing_of_the_next_batch_on_card(cuda, dtype, 16, S)
+    if dtype == torch.bfloat16:
+        hopper.test_k3_bf16_tile_edges_and_no_read_across_heads_on_card(cuda, 16, S)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S", [65, 601])
+def test_d16_k1_residuals_match_the_plain_ones_on_card(cuda, dtype, S):
+    hopper.test_k1_statistics_match_the_plain_ones_on_card(cuda, dtype, 16, S)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_d16_k5_at_the_entry_flagship_training_shape_on_card(cuda, dtype):
+    # K5 at B128 S600 W64 H4 (chip_smoke.py's D = 16 leg), given K1's
+    # residuals, against its plain version and its sums in f64; two
+    # launches bit-equal
+    B, S, W, H = 128, 600, 64, 4
+    qkv, dout, mask = hopper._inputs(cuda, B, S, W, dtype, seed=16)
+    _, o32, stats = packed_attention_with_stats(qkv, H, mask)
+    before = LAUNCH_COUNTS["packed_attention_backward"]
+    got = packed_attention_backward(qkv, dout, H, mask, out=o32, stats=stats)
+    assert LAUNCH_COUNTS["packed_attention_backward"] == before + 1
+    assert torch.equal(got, packed_attention_backward(qkv, dout, H, mask, out=o32, stats=stats))
+    hopper._hold_backward(got, qkv, dout, H, mask, hopper.REL[dtype])

@@ -17,6 +17,7 @@ eager path.
 """
 
 import os
+import re
 
 import jax
 import jax.numpy as jnp
@@ -255,3 +256,51 @@ def zero_surfpos(noise):
     def draw(site, shape, step=None):
         return torch.zeros(shape) if site.startswith("surfpos") else noise(site, shape, step)
     return draw
+
+
+def test_no_limit_samples_until_stopped_and_writes_each_batch(tmp_path):
+    """F6: with neither ``--num_samples`` nor ``--max_batches`` the CLI
+    samples until it is stopped, as the JAX CLI's ``--num_samples 0`` (its
+    ``while True``): each batch's raw arrays land in
+    ``samples/batches/<batch>.npz`` as they finish; SIGINT ends the run
+    after the batch in flight, the postprocess pool drains, the summary is
+    printed and the exit status is 0. ``resample_main --from_dump`` reads
+    the folder as it reads a ``batches.npz``."""
+    import signal
+    import subprocess
+    import sys
+    import time
+
+    from brepgen_tpu_torch.cli.resample_main import load_dump
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
+    env = dict(os.environ, PYTHONPATH=root, OMP_NUM_THREADS="1")
+    proc = subprocess.Popen([sys.executable, "-m", "brepgen_tpu_torch.cli.sample_main",
+                             *_cli(tmp_path)], cwd=root, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    folder = tmp_path / "samples" / "batches"
+    deadline = time.monotonic() + 240
+    try:
+        while not (folder / "000001.npz").exists():
+            assert proc.poll() is None, f"exited {proc.returncode}: {proc.stdout.read()[-3000:]}"
+            assert time.monotonic() < deadline, "no second batch on disk"
+            time.sleep(0.05)
+        proc.send_signal(signal.SIGINT)
+        out, _ = proc.communicate(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+    assert proc.returncode == 0, out[-3000:]
+    assert "SIGINT: stopping after the batch in flight" in out
+    m = re.search(r"produced (\d+)/(\d+) valid B-reps from (\d+) batches", out)
+    assert m, out[-3000:]
+    n = int(m.group(3))
+    assert n >= 2 and int(m.group(2)) == n  # batch size 1, every sample post-processed
+    assert sorted(os.listdir(folder)) == [f"{b:06d}.npz" for b in range(n)]
+    assert not (tmp_path / "samples" / "batches.npz").exists()
+    batches = load_dump(str(folder))
+    assert len(batches) == n
+    keys = {"surf_ncs", "surf_pos", "surf_mask", "edge_ncs", "edge_pos", "edge_mask"}
+    for b in batches:
+        assert keys <= set(b) and b["surf_pos"].shape[0] == 1
+        assert all(np.isfinite(v).all() for v in b.values() if v.dtype != bool)
