@@ -93,11 +93,14 @@ def _materialise(make: Callable[[], torch.nn.Module], device: torch.device,
 
 
 def load_models(use_cf: bool, weights_dir: Optional[str] = None, seed: int = 0,
-                dtype: torch.dtype = torch.float32, device: str = "cuda", small: bool = False):
+                dtype: torch.dtype = torch.float32, device: str = "cuda", small: bool = False,
+                attn_impl: Optional[str] = None):
     """(denoisers by stage, surface VAE, edge VAE) with weights from
     ``weights_dir`` (npz packs, at the architecture and class count they
     hold) or seeded from ``seed`` at the production widths (the tiny debug
-    architecture with ``small``), in ``dtype`` on ``device``."""
+    architecture with ``small``), in ``dtype`` on ``device``. ``attn_impl``
+    ("kernel" or "plain") sets every denoiser's attention; by default the
+    edge stages take the kernels and the surf stages plain attention."""
     dev = resolve_device(device)
     arch = arch_of_packs(weights_dir) if weights_dir else "small" if small else "production"
     if small and arch != "small":
@@ -108,6 +111,8 @@ def load_models(use_cf: bool, weights_dir: Optional[str] = None, seed: int = 0,
     def denoiser(path, stage):
         classes = classes_of_pack(path) if path else None
         kw = {"num_classes": classes} if classes else {}
+        if attn_impl is not None:
+            kw["attn_impl"] = attn_impl
         return build_denoiser(stage, use_cf, arch, **kw)
 
     nets = {}

@@ -239,7 +239,8 @@ class Cascade:
     CUDA card) every denoiser call replays a CUDA graph of its stage,
     captured at its first call; without, it runs eagerly. With ``row_split``
     it is one rank's share of a split batch (the module's docstring); its
-    ``batch_size`` is the rank's rows."""
+    ``batch_size`` is the rank's rows. ``precompile_stage`` and
+    ``run_stage_random`` run one stage alone, for the benches."""
 
     def __init__(self, nets: Dict[str, torch.nn.Module], surf_vae, edge_vae,
                  config: CascadeConfig, graphs: Optional[StageGraphs] = None,
@@ -411,6 +412,74 @@ class Cascade:
         surf_ncs = chunked(self.surf_vae.decode, surfz.reshape(B * ns, 4, 4, 3), 1024)
         edge_ncs = chunked(self.edge_vae.decode, edgezv[..., :12].reshape(B * ns * ne, 4, 3), 8192)
         return surf_ncs.reshape(B, ns, 32, 32, 3), edge_ncs.reshape(B, ns, ne, 32, 3)
+
+    # --- bench hooks (brepgen_tpu/sampling/cascade.py:579-637) ---------------
+    def stage_inputs(self, name: str, ns_c: Optional[int] = None):
+        """The shapes of the inputs a bench hook hands stage ``name``, in the
+        order of JAX's draws (``cascade.py:622-633``): the edge stages run on
+        ``ns_c`` face slots where given, the others on every slot."""
+        if name not in STAGES:
+            raise ValueError(f"unknown stage {name!r}; one of {STAGES}")
+        cfg = self.cfg
+        B, ns, ne = cfg.batch_size, cfg.faces, cfg.num_edges
+        nsx = ns if ns_c is None else ns_c
+        return {
+            "surfpos": (),
+            "surfz": ((B, ns, 6),),
+            "edgepos": ((B, nsx, 6), (B, nsx, 48)),
+            "edgez": ((B, nsx, ne, 6), (B, nsx, 6), (B, nsx, 48)),
+            "decode": ((B, ns, 48), (B, ns, ne, 18)),
+        }[name]
+
+    def _run_stage(self, name: str, noise, inputs, face_flags: bool):
+        """Stage ``name`` on ``inputs``; the edge stages take a face mask of
+        ``face_flags`` (edgepos its ``surf_mask``, edgez its ``surf_keep``)."""
+        if name == "decode":
+            return self.s_decode(*inputs)
+        if name in ("edgepos", "edgez"):
+            flags = torch.full(inputs[0].shape[:2], face_flags, dtype=torch.bool,
+                               device=self.device)
+            inputs = (*inputs, flags)
+        return getattr(self, f"s_{name}")(noise, *inputs)
+
+    @torch.inference_mode()
+    def precompile_stage(self, name: str) -> None:
+        """Run stage ``name`` once on zero-filled inputs of the production
+        shapes, as JAX's ``precompile_stage`` does (its masks are zeros too):
+        on the card this captures the stage's CUDA graphs (and writes their
+        manifest where the cascade's ``StageGraphs`` has a cache directory);
+        on the CPU it runs eagerly."""
+        gen = torch.Generator(device=self.device).manual_seed(0)
+        inputs = [torch.zeros(s, device=self.device) for s in self.stage_inputs(name)]
+        self._run_stage(name, GeneratorNoise(gen), inputs, False)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    @torch.inference_mode()
+    def run_stage_random(self, name: str, seed: int, ns_c: Optional[int] = None,
+                         inputs=None, noise=None):
+        """Stage ``name`` on random inputs of the production shapes, as JAX's
+        ``run_stage_random``, on ``ns_c`` face slots for the edge stages (the
+        compacted bucket) where given; returns what the stage returns. The
+        masks are JAX's: no face masked for edgepos, every face kept for
+        edgez.
+
+        The inputs and the stage's own draws come from one ``torch.Generator``
+        seeded by ``seed``; ``inputs`` (arrays of the ``stage_inputs``
+        shapes) and ``noise`` (a noise source) replace them where given, as
+        the tests hand it JAX's draws."""
+        shapes = self.stage_inputs(name, ns_c)
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        if inputs is None:
+            inputs = [torch.randn(s, generator=gen, device=self.device) for s in shapes]
+        else:
+            inputs = [torch.as_tensor(a, dtype=torch.float32, device=self.device)
+                      for a in inputs]
+            got = tuple(tuple(a.shape) for a in inputs)
+            if got != shapes:
+                raise ValueError(f"stage {name}: inputs of shapes {got}, expected {shapes}")
+        noise = GeneratorNoise(gen) if noise is None else noise
+        return self._run_stage(name, noise, inputs, name == "edgez")
 
     @torch.inference_mode()
     def __call__(self, noise, stage_times: Optional[Dict[str, float]] = None,

@@ -63,7 +63,12 @@ flagship edgez denoiser, head width 16, through K1) against the CPU, then
 ``dryrun_multichip(4)``: four gloo ranks sharing the card take the edgez
 step on a 2 x 2 data x model mesh (tensor-parallel training through K1/K5
 at head width 16), held to the same step in one process, and split the
-tiny cascade 4 ways against the unsharded one.
+tiny cascade 4 ways against the unsharded one. Phase bench runs the
+measuring entry points at production size: ``brepgen_tpu_torch/bench.py``
+(captured steps and a measured deepcad batch), ``tools/bench_cascade.py``'s
+``time:edgez@24``, the train-step bench's plain and kernel legs, the Chamfer
+protocol bench and ``io_bench cached_only``, each with its K1, K4 and K5
+launches asserted.
 The native host library (trimming) is built with g++ beside the kernels. It checks shapes,
 finiteness, masks, solids, agreement of the compacted and full runs, the
 gradients, and kernel launch counts. Each phase prints one line with its
@@ -78,6 +83,7 @@ import argparse
 import contextlib
 import io
 import json
+import math
 import os
 import re
 import subprocess
@@ -1597,6 +1603,110 @@ def phase_graft_entry(torch):
                       max_abs_diff=sampling["max_abs_diff"]))
 
 
+BENCH_TRAIN_STEPS = 3   # the train-step bench: timed steps of each leg
+BENCH_IO_STEPS = 5      # io_bench cached_only: timed device steps
+BENCH_BUDGET_S = 90     # phase bench's share of the smoke's clock
+
+
+def phase_bench(torch, work):
+    """The measuring entry points on the card, each with the launch counts
+    set to 0 just before it and read just after: ``brepgen_tpu_torch.bench``
+    (30 replays of each captured step, then a measured deepcad PNDM + DDPM
+    batch; K1 once a layer of every edge step and edge call),
+    ``tools/bench_cascade.py deepcad kernel <cache> time:edgez@24 1`` (K1 in
+    each of the 209 edgez calls, the graphs' manifest written), the
+    train-step bench's plain and kernel legs (K1 forward and K5 backward in
+    each layer of each kernel step, none in the plain leg), the Chamfer
+    protocol bench (three K4 launches) and ``io_bench cached_only`` (the
+    edgez step with remat: two K1 and one K5 a layer). Each entry's JSON line
+    is printed by the entry. Returns the phase's paths for the kernels
+    line."""
+    from brepgen_tpu_torch import bench
+    from brepgen_tpu_torch.diffusion import make_pndm_plan
+    from brepgen_tpu_torch.kernels import LAUNCH_COUNTS, reset_launch_counts
+    from brepgen_tpu_torch.sampling.aot import MANIFEST
+    from brepgen_tpu_torch.tools import bench_cascade, chamfer_protocol_bench, io_bench, \
+        train_step_bench
+
+    t_phase = time.perf_counter()
+    layers = 12
+    edgez_calls = len(make_pndm_plan(200).t_model)
+
+    def run(label, main, argv, want):
+        reset_launch_counts()
+        t = time.perf_counter()
+        report = main(argv)
+        seconds = time.perf_counter() - t
+        launches = {k: n for k, n in LAUNCH_COUNTS.items() if n}
+        if launches != want:
+            raise AssertionError(f"bench {label}: launches {launches}, expected {want}")
+        log(f"phase bench: {label} in {seconds:.2f} s, launches {launches}")
+        return report, launches, seconds
+
+    per_shape = bench.WARMUP + 30
+    report, launches, seconds = run(
+        "brepgen_tpu_torch.bench", bench.main, [],
+        {"packed_attention": layers * (3 * per_shape + 2 * bench.EDGE_EVALS)})
+    detail = report["detail"]
+    if not (all(v == layers for v in detail["k1_launches_per_edge_step"].values())
+            and all(math.isfinite(report[k]) for k in ("value", "vs_baseline"))
+            and math.isfinite(detail["measured_cascade_s_per_batch16"])):
+        raise AssertionError(f"bench: {report}")
+    log(f"phase bench: {report['value']:.3f} B-reps/min estimated ({detail['edge_step_ms']:.3f} "
+        f"ms an edge step, {detail['surf_step_ms']:.3f} a surf step, MFU "
+        f"{detail['edge_mfu_vs_peak']:.4f} / {detail['surf_mfu_vs_peak']:.4f} of "
+        f"{detail['mfu_peak_tflops']:g} TFLOP/s); cascade {detail['cascade_s_per_batch16']:.3f} "
+        f"s a batch of 16 estimated, {detail['measured_cascade_s_per_batch16']:.3f} measured")
+    paths = {"packed_attention": [dict(
+        path="bench (brepgen_tpu_torch.bench: captured steps B16 at S 1800, 960, 1920, bf16, "
+             f"{per_shape} replays each, then a measured deepcad PNDM + DDPM batch of 16)",
+        launches=launches["packed_attention"], seconds=seconds, **detail)]}
+
+    cache = os.path.join(work, "bench_graphs")
+    report, launches, seconds = run(
+        "bench_cascade time:edgez@24", bench_cascade.main,
+        ["deepcad", "kernel", cache, "time:edgez@24", "1"],
+        {"packed_attention": layers * edgez_calls})
+    if not os.path.isfile(os.path.join(cache, MANIFEST)):
+        raise AssertionError(f"bench_cascade: no {MANIFEST} in {cache}")
+    paths["packed_attention"].append(dict(
+        path="bench_cascade (deepcad, kernel, time:edgez@24, 1 rep, B=16, bf16)",
+        launches=launches["packed_attention"], seconds=seconds, **report))
+
+    steps = 1 + BENCH_TRAIN_STEPS  # a warm-up step and the timed ones, kernel leg only
+    report, launches, seconds = run(
+        "train_step_bench", train_step_bench.main, ["--steps", str(BENCH_TRAIN_STEPS)],
+        {"packed_attention": layers * steps, "packed_attention_backward": layers * steps})
+    train_path = dict(path=f"train_step_bench (edgez B=128 S=600 bf16, no remat, "
+                           f"{BENCH_TRAIN_STEPS} steps a leg, plain then kernel)",
+                      seconds=seconds, **report)
+    paths["packed_attention"].append(dict(train_path, launches=launches["packed_attention"]))
+    paths["packed_attention_backward"] = [dict(
+        train_path, launches=launches["packed_attention_backward"])]
+
+    out = os.path.join(work, "chamfer_protocol.json")
+    report, launches, seconds = run("chamfer_protocol_bench", chamfer_protocol_bench.main,
+                                    [out], {"chamfer": 3})
+    paths["chamfer"] = [dict(path="chamfer_protocol_bench (3000 x 1000 clouds of 2000 points: "
+                                  "a 256-row warm-up, the first call, a repeat)",
+                             launches=launches["chamfer"], seconds=seconds, **report)]
+
+    steps = 1 + BENCH_IO_STEPS
+    report, launches, seconds = run(
+        "io_bench cached_only", io_bench.main, ["cached_only", "--steps", str(BENCH_IO_STEPS)],
+        {"packed_attention": 2 * layers * steps, "packed_attention_backward": layers * steps})
+    io_path = dict(path=f"io_bench cached_only (edgez B=128 S=600 bf16, remat, cached "
+                        f"latents, {BENCH_IO_STEPS} steps)", seconds=seconds, **report)
+    paths["packed_attention"].append(dict(io_path, launches=launches["packed_attention"]))
+    paths["packed_attention_backward"].append(dict(
+        io_path, launches=launches["packed_attention_backward"]))
+
+    seconds = time.perf_counter() - t_phase
+    log(f"phase bench: the five entries in {seconds:.2f} s (budget {BENCH_BUDGET_S} s"
+        + ("" if seconds <= BENCH_BUDGET_S else ", OVER") + ")")
+    return paths
+
+
 def chamfer_bound(S, R, P, n):
     """S*R*n^2 distances x 8 FLOP (3 sub, 3 mul, 2 add) in f32 against each
     cloud read once and the matrix written once. Each point-pair distance
@@ -2341,15 +2451,13 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     from concurrent.futures import ThreadPoolExecutor
 
+    from brepgen_tpu_torch import nvidia_smi_card
     from brepgen_tpu_torch.cli.sample_main import init_cascade
     from brepgen_tpu_torch.diffusion import make_pndm_plan
     from brepgen_tpu_torch.geometry import native_bindings
     from brepgen_tpu_torch.kernels import _build
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
+    smi = nvidia_smi_card(0)
     print(smi, flush=True)
     t = time.perf_counter()
     kernels = ("packed_attention", "set_attention", "chamfer", "packed_attention_bwd")
@@ -2514,6 +2622,11 @@ def main(argv=None) -> int:
         graft = phase_graft_entry(torch)
         torch.cuda.empty_cache()
         log(f"phase graft_entry done in {time.perf_counter() - t:.2f} s")
+
+        t = time.perf_counter()
+        bench_paths = phase_bench(torch, work)
+        torch.cuda.empty_cache()
+        log(f"phase bench done in {time.perf_counter() - t:.2f} s")
         dp_paths = [
             dict(path="dp (b) (split edgez step, f32, B=128 as 64 + 64 over 2 gloo ranks on "
                       "one card; per rank)", launches=dp["b"]["launches"]["packed_attention"],
@@ -2545,7 +2658,8 @@ def main(argv=None) -> int:
                      + dp_paths + small_paths + [
                          graft["entry"], graft["sampling"],
                          dict(graft["train"], launches=[
-                             c["packed_attention"] for c in graft["train"]["launches"]])],
+                             c["packed_attention"] for c in graft["train"]["launches"]])]
+                     + bench_paths["packed_attention"],
                      tensor_core_instructions=tensor_cores.get("packed_attention")),
         kernel_entry("packed_flash_attention", csrc + "packed_attention.cu",
                      "brepgen_tpu/kernels/attention.py:261",
@@ -2563,7 +2677,7 @@ def main(argv=None) -> int:
                       dict(path="solids (protocol batch 0, serial)", **solids),
                       dict(path="rescore metrics (metrics_main, recovered and strict, "
                                 "64 held-out clouds)", launches=rescore["chamfer_launches"],
-                           metrics=rescore["metrics"])],
+                           metrics=rescore["metrics"])] + bench_paths["chamfer"],
                      yardstick_ms=chamfer_shapes[0]["yardstick_ms"]),
         kernel_entry("packed_attention_backward", csrc + "packed_attention_bwd.cu",
                      "brepgen_tpu/kernels/attention.py:377", training["launches"],
@@ -2574,7 +2688,8 @@ def main(argv=None) -> int:
                                            "packed_attention_backward"]),
                                        dict(graft["train"], launches=[
                                            c["packed_attention_backward"]
-                                           for c in graft["train"]["launches"]])],
+                                           for c in graft["train"]["launches"]])]
+                     + bench_paths["packed_attention_backward"],
                      packed_attention_ms=backward_shapes[0]["packed_attention_ms"],
                      tensor_core_instructions=tensor_cores.get("packed_attention_bwd")),
     ]}), flush=True)

@@ -40,7 +40,9 @@ def test_import_leaves_jax_out():
         "brepgen_tpu_torch.parallel, brepgen_tpu_torch.parallel.distributed, "
         "brepgen_tpu_torch.parallel.mesh, brepgen_tpu_torch.parallel.sharding_rules, "
         "brepgen_tpu_torch.tools.convert_torch, brepgen_tpu_torch.utils.viz, "
-        "brepgen_tpu_torch.graft_entry\n"
+        "brepgen_tpu_torch.graft_entry, brepgen_tpu_torch.bench, "
+        "brepgen_tpu_torch.tools.bench_cascade, brepgen_tpu_torch.tools.train_step_bench, "
+        "brepgen_tpu_torch.tools.chamfer_protocol_bench, brepgen_tpu_torch.tools.io_bench\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "assert not bad, bad\n"

@@ -31,6 +31,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def card_line():
+    # not brepgen_tpu_torch.nvidia_smi_card: ``memory`` runs this script under
+    # an earlier package, which may not have it
     return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
