@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from brepgen_tpu_torch.diffusion.ddpm import ModelFn, NoiseFn, make_betas_linear, plan_step
+from brepgen_tpu_torch.utils import profiling
 
 
 class DDIMStepCoeffs(NamedTuple):
@@ -59,11 +60,12 @@ def ddim_loop(model_fn: ModelFn, x: torch.Tensor, plan: DDIMStepCoeffs,
     for i in range(len(plan.t)):
         c = plan_step(plan, i)
         eps = model_fn(x, c.t)
-        x0 = (x - c.sqrt_one_minus_acp * eps) / c.sqrt_acp
-        if clip_range is not None:
-            x0 = x0.clamp(-clip_range, clip_range)
-        x_new = c.sqrt_acp_prev * x0 + c.dir_coeff * eps
-        if noise_fn is not None:
-            x_new = x_new + c.sigma * noise_fn(i, tuple(x.shape))
-        x = x_new
+        with profiling.span("brepgen.cascade.update"):
+            x0 = (x - c.sqrt_one_minus_acp * eps) / c.sqrt_acp
+            if clip_range is not None:
+                x0 = x0.clamp(-clip_range, clip_range)
+            x_new = c.sqrt_acp_prev * x0 + c.dir_coeff * eps
+            if noise_fn is not None:
+                x_new = x_new + c.sigma * noise_fn(i, tuple(x.shape))
+            x = x_new
     return x

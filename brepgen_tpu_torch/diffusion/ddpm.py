@@ -14,6 +14,8 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from brepgen_tpu_torch.utils import profiling
+
 ModelFn = Callable[[torch.Tensor, int], torch.Tensor]
 NoiseFn = Callable[[int, tuple], torch.Tensor]  # (step, shape) -> N(0, 1) draw
 
@@ -110,5 +112,6 @@ def ddpm_loop(model_fn: ModelFn, x: torch.Tensor, plan: DDPMStepCoeffs, noise_fn
     for i in range(len(plan.t)):
         c = plan_step(plan, i)
         eps = model_fn(x, c.t)
-        x = ddpm_step(c, x, eps, noise_fn(i, tuple(x.shape)), clip_range)
+        with profiling.span("brepgen.cascade.update"):
+            x = ddpm_step(c, x, eps, noise_fn(i, tuple(x.shape)), clip_range)
     return x

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from brepgen_tpu_torch.diffusion.ddpm import ModelFn, make_betas_linear, plan_step
+from brepgen_tpu_torch.utils import profiling
 
 
 class PNDMPlan(NamedTuple):
@@ -127,19 +128,20 @@ def pndm_loop_carry(model_fn: ModelFn, carry, plan: PNDMPlan):
     for i in range(len(plan.t_model)):
         c = plan_step(plan, i)
         eps = model_fn(x, c.t_model)
-        if c.append_ets:
-            ets = ets[1:] + [eps]
-        eps_eff = c.mo_w * eps
-        for w, e in zip(c.ets_w.tolist(), ets):
-            if w:
-                eps_eff = eps_eff + w * e
-        if c.cur_w:
-            eps_eff = eps_eff + c.cur_w * cur_mo
-        cur_mo = torch.zeros_like(cur_mo) if c.reset_cur_mo else cur_mo + c.cur_mo_add * eps
-        if c.set_cur_sample:
-            cur_s = x
-        base = cur_s if c.use_cur_sample else x
-        x = c.sc * base - c.dc * eps_eff
+        with profiling.span("brepgen.cascade.update"):
+            if c.append_ets:
+                ets = ets[1:] + [eps]
+            eps_eff = c.mo_w * eps
+            for w, e in zip(c.ets_w.tolist(), ets):
+                if w:
+                    eps_eff = eps_eff + w * e
+            if c.cur_w:
+                eps_eff = eps_eff + c.cur_w * cur_mo
+            cur_mo = torch.zeros_like(cur_mo) if c.reset_cur_mo else cur_mo + c.cur_mo_add * eps
+            if c.set_cur_sample:
+                cur_s = x
+            base = cur_s if c.use_cur_sample else x
+            x = c.sc * base - c.dc * eps_eff
     return x, ets, cur_mo, cur_s
 
 

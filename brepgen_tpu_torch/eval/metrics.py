@@ -14,6 +14,11 @@ Port of ``brepgen_tpu/eval/metrics.py`` (protocol parity with reference
     unchanged: the occupancy grid uses the closed-form lattice index
     instead of a NearestNeighbors tree (the grid is regular, so nearest
     cell = rounding).
+
+Each scorer is a span: ``brepgen.eval.chamfer`` (the matrix and its copy
+back, with CUDA events on a card), ``brepgen.eval.cov_mmd`` and
+``brepgen.eval.jsd``, with the set sizes ``n_s`` and ``n_r``
+(``utils/profiling.py``).
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ import torch
 
 from brepgen_tpu_torch import resolve_device
 from brepgen_tpu_torch.kernels.chamfer import chamfer_matrix
+from brepgen_tpu_torch.utils import profiling
 
 
 def normalize_pc(points: np.ndarray) -> np.ndarray:
@@ -36,17 +42,20 @@ def pairwise_chamfer(sample_pcs, ref_pcs, device: str | torch.device = "cuda") -
     """Full [N_sample, N_ref] chamfer matrix (f32) on ``device``: through
     kernel K4 on the card, through its plain version on the CPU."""
     dev = resolve_device(device)
-    sp = torch.as_tensor(np.asarray(sample_pcs, np.float32), device=dev).contiguous()
-    rp = torch.as_tensor(np.asarray(ref_pcs, np.float32), device=dev).contiguous()
-    return chamfer_matrix(sp, rp).cpu().numpy()
+    with profiling.span("brepgen.eval.chamfer", device=True, n_s=len(sample_pcs),
+                        n_r=len(ref_pcs)):
+        sp = torch.as_tensor(np.asarray(sample_pcs, np.float32), device=dev).contiguous()
+        rp = torch.as_tensor(np.asarray(ref_pcs, np.float32), device=dev).contiguous()
+        return chamfer_matrix(sp, rp).cpu().numpy()
 
 
 def cov_mmd_from_matrix(d: np.ndarray) -> Dict[str, float]:
     """MMD-CD and COV-CD of one [N_sample, N_ref] chamfer matrix."""
-    mmd = float(d.min(axis=0).mean())
-    matched = np.argmin(d, axis=1)
-    cov = float(len(np.unique(matched))) / d.shape[1]
-    return {"MMD-CD": mmd, "COV-CD": cov}
+    with profiling.span("brepgen.eval.cov_mmd", n_s=d.shape[0], n_r=d.shape[1]):
+        mmd = float(d.min(axis=0).mean())
+        matched = np.argmin(d, axis=1)
+        cov = float(len(np.unique(matched))) / d.shape[1]
+        return {"MMD-CD": mmd, "COV-CD": cov}
 
 
 def compute_cov_mmd(sample_pcs, ref_pcs, device: str | torch.device = "cuda") -> Dict[str, float]:
@@ -93,6 +102,7 @@ def _jsdiv(P: np.ndarray, Q: np.ndarray) -> float:
 def jsd_between_point_cloud_sets(
     sample_pcs: np.ndarray, ref_pcs: np.ndarray, resolution: int = 28
 ) -> float:
-    a = _occupancy_counts(sample_pcs, resolution)
-    b = _occupancy_counts(ref_pcs, resolution)
-    return _jsdiv(a, b)
+    with profiling.span("brepgen.eval.jsd", n_s=len(sample_pcs), n_r=len(ref_pcs)):
+        a = _occupancy_counts(sample_pcs, resolution)
+        b = _occupancy_counts(ref_pcs, resolution)
+        return _jsdiv(a, b)

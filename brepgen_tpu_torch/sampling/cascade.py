@@ -19,7 +19,10 @@ edge stages on the kept faces only (face-token compaction). Each schedule is
 one Python loop; with ``graphs`` each denoiser call in it replays a CUDA
 graph of its stage (``sampling/aot.py``). Every noise draw goes through one
 noise source, which the caller can replace (the tests hand it the JAX
-package's draws).
+package's draws). With tracing on (``utils/profiling.py``) each stage, each
+denoiser call, each scheduler update between two calls and the face dedup
+is a span (``brepgen.cascade.<stage>``, ``.denoise``, ``.update``,
+``.dedup``).
 
 Split sampling (the counterpart of the JAX cascade sharded over the mesh's
 ``data`` axis): under a process group each rank runs a cascade whose
@@ -54,6 +57,7 @@ from brepgen_tpu_torch.nn.denoiser import broadcast_face_to_edge, flatten_face_e
 from brepgen_tpu_torch.parallel.distributed import all_reduce_max
 from brepgen_tpu_torch.sampling.aot import StageGraphs
 from brepgen_tpu_torch.sampling.dedup import dedup_bboxes, dedup_edges_per_face
+from brepgen_tpu_torch.utils import profiling
 
 TEXT2INT = {
     "uncond": 0, "bathtub": 1, "bed": 2, "bench": 3, "bookshelf": 4,
@@ -253,6 +257,7 @@ class Cascade:
         self.graphs = graphs
         self.captured: Dict = {}  # this cascade's graphs, by (stage, signature)
         self.model_calls = dict.fromkeys(STAGES[:4], 0)
+        self.batch = -1  # the index of the batch ``__call__`` runs, the spans' ``batch`` id
         self.last_bucket = None  # face slots of the last batch's edge stages
         cfg = config
         if cfg.fast_steps > 0:
@@ -315,7 +320,9 @@ class Cascade:
 
         def eps(x, t):
             self.model_calls[stage] += 1
-            return run(x, t)
+            with profiling.span("brepgen.cascade.denoise", batch=self.batch, stage=stage,
+                                call=self.model_calls[stage]):
+                return run(x, t)
 
         return eps
 
@@ -337,8 +344,9 @@ class Cascade:
 
     def s_surfz(self, noise, surfpos):
         cfg = self.cfg
-        surf_keep = dedup_bboxes(surfpos, cfg.bbox_threshold)  # True = keep
-        surf_mask = ~surf_keep                                  # True = pad
+        with profiling.span("brepgen.cascade.dedup"):
+            surf_keep = dedup_bboxes(surfpos, cfg.bbox_threshold)  # True = keep
+        surf_mask = ~surf_keep  # True = pad
         surfpos = torch.where(surf_mask[:, :, None], 0.0, surfpos)
         z = noise("surfz", (cfg.batch_size, cfg.faces, 48))
         eps = self.stage_eps("surfz", lambda x: {"surfz": x}, {"surfpos": surfpos}, surf_mask)
@@ -485,14 +493,18 @@ class Cascade:
     def __call__(self, noise, stage_times: Optional[Dict[str, float]] = None,
                  after_stage: Optional[Callable[[str], None]] = None) -> Dict[str, torch.Tensor]:
         """One batch. ``stage_times`` collects seconds per stage (synchronising
-        the device around each); ``after_stage(name)`` runs after each stage."""
+        the device around each); ``after_stage(name)`` runs after each stage.
+        Each stage is a span ``brepgen.cascade.<stage>`` with the batch's
+        index (``batch``)."""
         cuda = self.device.type == "cuda"
+        self.batch += 1
 
         def run(name, fn, *args):
             if stage_times is not None and cuda:
                 torch.cuda.synchronize()
             t0 = time.perf_counter()
-            out = fn(*args)
+            with profiling.span(f"brepgen.cascade.{name}", device=True, batch=self.batch):
+                out = fn(*args)
             if stage_times is not None:
                 if cuda:
                     torch.cuda.synchronize()

@@ -17,6 +17,12 @@ the same generator. ``compute_dtype=torch.bfloat16`` runs the encodes and the
 denoiser under ``torch.autocast`` (bf16 compute over f32 parameters and
 optimizer state, as the JAX ``--bf16``); losses are taken in f32.
 
+Each step is a span ``brepgen.train.step`` (id ``step``, the state's count of
+steps before it) with the children ``brepgen.train.encode`` (the frozen
+encodes), ``.forward`` (from there to the losses: draws, augmentation,
+noising and the denoiser), ``.backward`` and ``.optimizer`` (the clip and
+AdamW), each with CUDA events on a card (``utils/profiling.py``).
+
 Under data parallelism (``row_split``, a ``parallel.distributed.RowSplit``)
 the batch holds this rank's rows of the global batch: the step draws what
 the global batch draws and keeps its rows, its masked losses are the global
@@ -33,6 +39,7 @@ vertpos [B,nf,ne,6], class_label [B,1] (optional).
 from __future__ import annotations
 
 import contextlib
+import functools
 from typing import Callable, Dict, Optional, Sequence
 
 import torch
@@ -40,6 +47,7 @@ import torch
 from brepgen_tpu_torch.diffusion.ddpm import DDPMTables, add_noise
 from brepgen_tpu_torch.nn.denoiser import broadcast_face_to_edge, flatten_face_edge
 from brepgen_tpu_torch.train.common import TrainState, global_mean, masked_mse
+from brepgen_tpu_torch.utils import profiling
 
 AUG_MAX_T = 15
 TARGET_DIMS = {"surfpos": 6, "surfz": 48, "edgepos": 6, "edgez": 18}
@@ -102,13 +110,14 @@ def encode_edge(edge_encode: Callable, edgepnt: torch.Tensor) -> torch.Tensor:
 def _latents(batch, surf_encode=None, edge_encode=None):
     """(surfz, edgez): the batch's latents where it carries them, else the
     frozen encodes of its grids; None where it has neither."""
-    surfz = batch.get("surfz")
-    if surfz is None and "surfpnt" in batch:
-        surfz = encode_surf(surf_encode, batch["surfpnt"])
-    edgez = batch.get("edgez")
-    if edgez is None and "edgepnt" in batch:
-        edgez = encode_edge(edge_encode, batch["edgepnt"])
-    return surfz, edgez
+    with profiling.span("brepgen.train.encode", device=True):
+        surfz = batch.get("surfz")
+        if surfz is None and "surfpnt" in batch:
+            surfz = encode_surf(surf_encode, batch["surfpnt"])
+        edgez = batch.get("edgez")
+        if edgez is None and "edgepnt" in batch:
+            edgez = encode_edge(edge_encode, batch["edgepnt"])
+        return surfz, edgez
 
 
 def _augment(tables: DDPMTables, x: torch.Tensor, draw) -> torch.Tensor:
@@ -118,9 +127,25 @@ def _augment(tables: DDPMTables, x: torch.Tensor, draw) -> torch.Tensor:
 
 
 def _update(state: TrainState, loss: torch.Tensor) -> None:
-    loss.backward()
-    state.optimizer.step()
+    with profiling.span("brepgen.train.backward", device=True):
+        loss.backward()
+    with profiling.span("brepgen.train.optimizer", device=True):
+        state.optimizer.step()
     state.step += 1
+
+
+def _forward():
+    return profiling.span("brepgen.train.forward", device=True)
+
+
+def _spanned(step):
+    """``step`` inside the span ``brepgen.train.step``."""
+    @functools.wraps(step)
+    def spanned(state: TrainState, batch, generator=None, draws: Optional[Draws] = None):
+        with profiling.span("brepgen.train.step", device=True, step=state.step):
+            return step(state, batch, generator, draws)
+
+    return spanned
 
 
 class _Stage:
@@ -173,15 +198,17 @@ def make_surfpos_step(model, tables: DDPMTables, use_cf: bool = False, compute_d
     st = _Stage(model, tables, use_cf=use_cf, compute_dtype=compute_dtype, row_split=row_split)
 
     def step(state: TrainState, batch, generator=None, draws: Optional[Draws] = None):
-        x = batch["surfpos"]
-        draws = st.draws(draws, generator, x, [])
-        x_t, noise, t = st.noised(x, draws)
-        pred = st.predict((x_t,), t, None, batch, generator, draws)
-        loss = torch.mean((pred - noise) ** 2)  # equal shares: DDP's average is the global mean
+        with _forward():
+            x = batch["surfpos"]
+            draws = st.draws(draws, generator, x, [])
+            x_t, noise, t = st.noised(x, draws)
+            pred = st.predict((x_t,), t, None, batch, generator, draws)
+            # equal shares: DDP's average is the global mean
+            loss = torch.mean((pred - noise) ** 2)
         _update(state, loss)
         return st.metrics(loss=loss)
 
-    return step
+    return _spanned(step)
 
 
 def make_surfz_step(model, tables: DDPMTables, surf_encode, use_cf=False, compute_dtype=None,
@@ -192,15 +219,16 @@ def make_surfz_step(model, tables: DDPMTables, surf_encode, use_cf=False, comput
     def step(state: TrainState, batch, generator=None, draws: Optional[Draws] = None):
         mask = batch["surf_mask"]
         surfz, _ = st.latents(batch)
-        draws = st.draws(draws, generator, surfz, [batch["surfpos"]])
-        surfpos = _augment(tables, batch["surfpos"], draws["aug"][0])
-        x_t, noise, t = st.noised(surfz, draws)
-        pred = st.predict((x_t, surfpos), t, mask, batch, generator, draws)
-        loss = st.mse(pred, noise, mask)
+        with _forward():
+            draws = st.draws(draws, generator, surfz, [batch["surfpos"]])
+            surfpos = _augment(tables, batch["surfpos"], draws["aug"][0])
+            x_t, noise, t = st.noised(surfz, draws)
+            pred = st.predict((x_t, surfpos), t, mask, batch, generator, draws)
+            loss = st.mse(pred, noise, mask)
         _update(state, loss)
         return st.metrics(loss=loss)
 
-    return step
+    return _spanned(step)
 
 
 def make_edgepos_step(model, tables: DDPMTables, surf_encode, use_cf=False, compute_dtype=None,
@@ -212,20 +240,21 @@ def make_edgepos_step(model, tables: DDPMTables, surf_encode, use_cf=False, comp
         edgepos, mask = batch["edgepos"], batch["surf_mask"]  # [B, nf, ne, 6], [B, nf]
         B, nf, ne, _ = edgepos.shape
         surfz, _ = st.latents(batch)
-        draws = st.draws(draws, generator, edgepos, [batch["surfpos"], surfz])
-        surfpos = _augment(tables, batch["surfpos"], draws["aug"][0])
-        surfz = _augment(tables, surfz, draws["aug"][1])
-        x_t, noise, t = st.noised(edgepos, draws)
-        streams = (flatten_face_edge(x_t), broadcast_face_to_edge(surfpos, ne),
-                   broadcast_face_to_edge(surfz, ne))
-        pred = st.predict(streams, t, mask.repeat_interleave(ne, dim=1), batch, generator,
-                          draws).reshape(B, nf, ne, 6)
-        # loss over valid faces (all their edge slots), reference trainer.py:732
-        loss = st.mse(pred, noise, mask[:, :, None].expand(B, nf, ne))
+        with _forward():
+            draws = st.draws(draws, generator, edgepos, [batch["surfpos"], surfz])
+            surfpos = _augment(tables, batch["surfpos"], draws["aug"][0])
+            surfz = _augment(tables, surfz, draws["aug"][1])
+            x_t, noise, t = st.noised(edgepos, draws)
+            streams = (flatten_face_edge(x_t), broadcast_face_to_edge(surfpos, ne),
+                       broadcast_face_to_edge(surfz, ne))
+            pred = st.predict(streams, t, mask.repeat_interleave(ne, dim=1), batch, generator,
+                              draws).reshape(B, nf, ne, 6)
+            # loss over valid faces (all their edge slots), reference trainer.py:732
+            loss = st.mse(pred, noise, mask[:, :, None].expand(B, nf, ne))
         _update(state, loss)
         return st.metrics(loss=loss)
 
-    return step
+    return _spanned(step)
 
 
 def make_edgez_step(model, tables: DDPMTables, surf_encode, edge_encode, use_cf=False,
@@ -236,24 +265,25 @@ def make_edgez_step(model, tables: DDPMTables, surf_encode, edge_encode, use_cf=
         edgepos, edge_mask = batch["edgepos"], batch["edge_mask"]  # [B,nf,ne,6], [B,nf,ne]
         B, nf, ne, _ = edgepos.shape
         surfz, edgez = st.latents(batch)
-        joint = torch.cat([edgez, batch["vertpos"]], -1)  # [B, nf, ne, 18]
-        draws = st.draws(draws, generator, joint, [edgepos, batch["surfpos"], surfz])
-        edgepos = _augment(tables, edgepos, draws["aug"][0])
-        surfpos = _augment(tables, batch["surfpos"], draws["aug"][1])
-        surfz = _augment(tables, surfz, draws["aug"][2])
-        x_t, noise, t = st.noised(joint, draws)
-        streams = (flatten_face_edge(x_t[..., :12]), flatten_face_edge(x_t[..., 12:]),
-                   flatten_face_edge(edgepos), broadcast_face_to_edge(surfpos, ne),
-                   broadcast_face_to_edge(surfz, ne))
-        pred = st.predict(streams, t, edge_mask.reshape(B, nf * ne), batch, generator,
-                          draws).reshape(B, nf, ne, 18)
-        loss = st.mse(pred, noise, edge_mask)
-        loss_z = st.mse(pred[..., :12], noise[..., :12], edge_mask)
-        loss_v = st.mse(pred[..., 12:], noise[..., 12:], edge_mask)
+        with _forward():
+            joint = torch.cat([edgez, batch["vertpos"]], -1)  # [B, nf, ne, 18]
+            draws = st.draws(draws, generator, joint, [edgepos, batch["surfpos"], surfz])
+            edgepos = _augment(tables, edgepos, draws["aug"][0])
+            surfpos = _augment(tables, batch["surfpos"], draws["aug"][1])
+            surfz = _augment(tables, surfz, draws["aug"][2])
+            x_t, noise, t = st.noised(joint, draws)
+            streams = (flatten_face_edge(x_t[..., :12]), flatten_face_edge(x_t[..., 12:]),
+                       flatten_face_edge(edgepos), broadcast_face_to_edge(surfpos, ne),
+                       broadcast_face_to_edge(surfz, ne))
+            pred = st.predict(streams, t, edge_mask.reshape(B, nf * ne), batch, generator,
+                              draws).reshape(B, nf, ne, 18)
+            loss = st.mse(pred, noise, edge_mask)
+            loss_z = st.mse(pred[..., :12], noise[..., :12], edge_mask)
+            loss_v = st.mse(pred[..., 12:], noise[..., 12:], edge_mask)
         _update(state, loss)
         return st.metrics(loss=loss, loss_z=loss_z, loss_v=loss_v)
 
-    return step
+    return _spanned(step)
 
 
 def make_step(stage: str, model, tables, surf_encode=None, edge_encode=None, use_cf=False,

@@ -1649,7 +1649,7 @@ def phase_bench(torch, work):
         {"packed_attention": layers * (3 * per_shape + 2 * bench.EDGE_EVALS)})
     detail = report["detail"]
     if not (all(v == layers for v in detail["k1_launches_per_edge_step"].values())
-            and all(math.isfinite(report[k]) for k in ("value", "vs_baseline"))
+            and math.isfinite(report["value"])
             and math.isfinite(detail["measured_cascade_s_per_batch16"])):
         raise AssertionError(f"bench: {report}")
     log(f"phase bench: {report['value']:.3f} B-reps/min estimated ({detail['edge_step_ms']:.3f} "

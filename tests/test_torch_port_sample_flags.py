@@ -139,7 +139,7 @@ def test_profile_traces_batch_1_only(tiny_deepcad, tmp_path, monkeypatch, capsys
     assert os.listdir(profile) == ["trace.json"]
     out = capsys.readouterr().out
     assert out.count("profile: batch 1:") == 1
-    assert "no device kernels in the trace" in out
+    assert "no device activity in the trace" in out
 
 
 def test_aot_cache_on_the_cpu_raises_naming_the_card(tiny_deepcad, tmp_path):
