@@ -4,7 +4,9 @@ Port of ``brepgen_tpu/nn/vae1d.py``. The public ``encode``/``decode`` keep the
 JAX package's channels-last layout ([N, 32, 3] <-> [N, 4, 3]); inside, tensors
 are [N, C, L]. ResConv blocks use GroupNorm(1) with eps 1e-5 and exact GELU;
 the self-attention's GroupNorm(1) also has eps 1e-5; the outer GroupNorm has
-eps 1e-6. Resampling is the fixed cubic FIR with reflect padding.
+eps 1e-6. Resampling is the fixed cubic FIR with reflect padding. Where no
+gradient is taken on a CUDA card, the self-attention's core runs in one
+kernel (``kernels/vae_attention.py``).
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from brepgen_tpu_torch.kernels import vae_attention
 from brepgen_tpu_torch.nn.layers import DiagonalGaussian, GroupNorm
 from brepgen_tpu_torch.nn.vae2d import group_norm
 
@@ -85,15 +88,26 @@ class SelfAttention1D(nn.Module):
         self.proj = nn.Linear(channels, channels)
 
     def forward(self, x):
-        N, C, L = x.shape
+        # [N, L, C], contiguous: on a transposed view each linear runs as N
+        # products of L x C by C x C (a batched GEMM over the broadcast weight)
+        h = self.norm(x).to(x.dtype).transpose(1, 2).contiguous()
+        q, k, v = self.q(h), self.k(h), self.v(h)
+        if vae_attention.takes_kernel(q, k, v, self.num_heads):
+            h = vae_attention.vae_attention(q, k, v, self.num_heads)
+        else:
+            h = self.attend(q, k, v, x.dtype)
+        return x + self.proj(h).transpose(1, 2)
+
+    def attend(self, q, k, v, dtype):
+        """The einsum path: the CPU's, training's with gradients, and the one
+        for shapes the kernel does not take."""
+        N, L, C = q.shape
         H, D = self.num_heads, C // self.num_heads
-        h = self.norm(x).to(x.dtype).transpose(1, 2)  # [N, L, C]
         split = lambda a: a.reshape(N, L, H, D).transpose(1, 2)
-        q, k, v = split(self.q(h)), split(self.k(h)), split(self.v(h))
+        q, k, v = split(q), split(k), split(v)
         scale = 1.0 / float(D) ** 0.5
         attn = torch.softmax((torch.einsum("bhqd,bhkd->bhqk", q, k) * scale).float(), dim=-1)
-        h = torch.einsum("bhqk,bhkd->bhqd", attn.to(x.dtype), v).transpose(1, 2).reshape(N, L, C)
-        return x + self.proj(h).transpose(1, 2)
+        return torch.einsum("bhqk,bhkd->bhqd", attn.to(dtype), v).transpose(1, 2).reshape(N, L, C)
 
 
 class MidBlock1D(nn.Module):

@@ -9,7 +9,10 @@ It builds the port's CUDA kernels from ``brepgen_tpu_torch/kernels/csrc`` with
 nvcc (one nvcc per source, started together) and holds each attention entry
 (K1 packed, K3 per-head, K2 long-set), the Chamfer kernel and the packed
 attention's backward (K5) against its plain PyTorch version on the card, the
-attention kernels at head widths 64, 32 and 16. After small cascades on the
+attention kernels at head widths 64, 32 and 16; the edge VAE's attention
+kernel (K6) likewise at the training step's edge encode, timed beside the
+einsum path it replaces and SDPA, and the production edge VAE's encode and
+decode through it against the einsum path. After small cascades on the
 card against the same ones on the CPU (the sample CLI's ``--small``
 architecture, head width 16, and width 64 with 2 heads) it drives the
 port's own entry points: the deepcad and abc cascades at the production width (seeded weights, DDIM fast mode;
@@ -169,6 +172,26 @@ GRAPH_REL = 1e-6
 # about 3 sigma under BASELINE.md's 70.3% strict at n=64
 RESCORE_BATCHES = 4
 RESCORE_MIN = {"recovered": 0.90, "strict": 0.50}
+# K6, the edge VAE's attention core (vae_attention): six launches in every
+# edge encode or decode on the card that takes no gradient (the encoder's and
+# the decoder's mid blocks), the cascade decoding its edges in chunks of
+# EDGE_DECODE_CHUNK (sampling/cascade.py:Cascade.s_decode). Its phase runs it
+# at the training step's edge encode (B128 x 30 faces x 20 edges, L 4, 16
+# heads of 32), held per element to |err| <= rel * |plain| + 1e-5 against its
+# plain version in f32 (rel 0 f32, 2^-8 bf16: one bf16 rounding)
+VAE_ATTENTIONS = 6
+EDGE_DECODE_CHUNK = 8192
+VAE_ATTENTION_SHAPE = (76800, 4, 16)
+VAE_ATTENTION_TOL = {"float32": (0.0, 1e-5), "bfloat16": (2.0 ** -8, 1e-5)}
+# The edge VAE's encode and decode through K6 against the einsum path in f32,
+# TF32 off (largest difference over the largest output): the two sum the
+# attention in another order. In bf16 both are held to that f32 path, and
+# the RMS difference of K6's path (f32 inside the attention) may not exceed
+# VAE_PATH_BF16_RATIO times the bf16 einsum path's (bf16 scores and
+# probabilities); the two bf16 paths differ by up to 5% of the largest
+# decoded coordinate at N 76,800, an extreme that the RMS steadies.
+VAE_PATH_F32_BAR = 1e-4
+VAE_PATH_BF16_RATIO = 1.1
 
 
 def log(msg: str) -> None:
@@ -483,6 +506,154 @@ class GradCapture:
         self.module.zero_grad(set_to_none=True)
 
 
+def decode_launches(cfg, batches=1):
+    """K6 launches of ``batches`` batches' decode of a cascade with config
+    ``cfg``: six in each chunk of the batch's edge slots."""
+    chunks = -(-cfg.batch_size * cfg.faces * cfg.num_edges // EDGE_DECODE_CHUNK)
+    return VAE_ATTENTIONS * chunks * batches
+
+
+def phase_vae_attention(torch, results):
+    """K6 against its plain version at ``VAE_ATTENTION_SHAPE`` in f32 and
+    bf16, two launches bit-equal, timed beside the einsum path it replaces
+    (``SelfAttention1D.attend``) and SDPA on the head-split views; then the
+    production edge VAE's encode and decode of the same number of edges,
+    through K6 (six launches each) and through the einsums, in f32 and bf16,
+    against the f32 einsum path."""
+    import torch.nn.functional as F
+
+    from brepgen_tpu_torch.cli.build import seed_weights
+    from brepgen_tpu_torch.kernels import LAUNCH_COUNTS
+    from brepgen_tpu_torch.kernels import vae_attention as va
+    from brepgen_tpu_torch.nn import vae1d
+    from brepgen_tpu_torch.nn.layers import cast_compute
+
+    N, L, H = VAE_ATTENTION_SHAPE
+    C = 32 * H
+    einsum_path = vae1d.SelfAttention1D(C, H).attend  # the module's parameters unused
+    heads = lambda a: a.view(N, L, H, 32).transpose(1, 2)  # noqa: E731
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        tag = "bf16" if dtype == torch.bfloat16 else "f32"
+        q, k, v = (torch.randn((N, L, C), generator=gen, device="cuda").to(dtype)
+                   for _ in range(3))
+        with torch.no_grad():
+            before = LAUNCH_COUNTS["vae_attention"]
+            got, again = va.vae_attention(q, k, v, H), va.vae_attention(q, k, v, H)
+            launches = LAUNCH_COUNTS["vae_attention"] - before
+            want = va.vae_attention_reference(q.float(), k.float(), v.float(), H)
+            rel, tol = VAE_ATTENTION_TOL[name]
+            diff = (got.float() - want).abs()
+            err, over = diff.max().item(), (diff - (rel * want.abs() + tol)).max().item()
+            einsum_err = (einsum_path(q, k, v, dtype).float() - want).abs().max().item()
+            row = dict(N=N, L=L, C=C, H=H, dtype=name, max_abs_err=err,
+                       einsum_max_abs_err=einsum_err)
+            label = f"kernel vae_attention N={N} L={L} C={C} H={H} {name}"
+            if over > 0 or not torch.equal(got, again) or launches != 2:
+                raise AssertionError(f"{label}: max_abs_err {err:.3e}, {over:.3e} over |err| <= "
+                                     f"{rel:g}*|plain| + {tol:g}; two launches bit-equal "
+                                     f"{torch.equal(got, again)}; launches {launches}")
+            del got, again, want, diff
+            row["ms"] = time_ms(torch, lambda: va.vae_attention(q, k, v, H), 20)
+            row["plain_ms"] = time_ms(torch, lambda: einsum_path(q, k, v, dtype), 3)
+            # SDPA takes [N, H, L, 32]; where its kernels refuse one call over
+            # all the sets (a grid of more than 65,535 batches), it runs in chunks
+            try:
+                sdpa = F.scaled_dot_product_attention(heads(q), heads(k), heads(v))
+                torch.cuda.synchronize()
+                chunk = N
+            except RuntimeError as e:
+                row["library_error"] = str(e).splitlines()[0][:200]
+                chunk = 32768
+                sdpa = torch.cat([F.scaled_dot_product_attention(
+                    *(a[i:i + chunk].view(-1, L, H, 32).transpose(1, 2) for a in (q, k, v)))
+                    for i in range(0, N, chunk)])
+            row["library_calls"] = -(-N // chunk)
+            row["library_max_abs_err"] = (sdpa.transpose(1, 2).reshape(N, L, C).float()
+                                          - va.vae_attention_reference(
+                                              q.float(), k.float(), v.float(), H)
+                                          ).abs().max().item()
+            del sdpa
+            row["library_ms"] = time_ms(torch, lambda: [F.scaled_dot_product_attention(
+                *(a[i:i + chunk].view(-1, L, H, 32).transpose(1, 2) for a in (q, k, v)))
+                for i in range(0, N, chunk)], 5)
+        # bytes: q, k, v read once and the output written once; operations:
+        # 4 L^2 D multiply-adds a (set, head), on the f32 pipes
+        t_bytes = 4 * N * L * C * q.element_size() / PEAK_BYTES * 1e3
+        t_ops = 4.0 * N * L * L * C / PEAK_FLOPS["float32"] * 1e3
+        row.update(bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops
+                   else "operations")
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        results.append(row)
+        log(f"{label}: max_abs_err {err:.3e} (einsum path {einsum_err:.3e}, SDPA "
+            f"{row['library_max_abs_err']:.3e}), tolerance |err| <= {rel:g}*|plain| + {tol:g}; "
+            f"two launches bit-equal; kernel {row['ms']:.4f} ms, einsum path "
+            f"{row['plain_ms']:.4f} ms, sdpa {row['library_ms']:.4f} ms in "
+            f"{row['library_calls']} call(s)"
+            + (f" ({row['library_error']})" if "library_error" in row else "")
+            + f", bound {row['bound_ms']:.4f} ms ({row['bound_by']}), "
+            f"{100 * row['bound_share']:.1f}% of it; "
+            + registers_text("vae_attention", f"vae_attention_kernel<{tag}>"))
+        del q, k, v
+        torch.cuda.empty_cache()
+
+    # the production edge VAE, K6's path and the einsum path, each against
+    # the f32 einsum path: every decode takes the f32 encode's latents
+    vae = seed_weights(vae1d.EdgeVAE(), torch.Generator().manual_seed(3)).to("cuda").eval()
+    x = torch.randn((N, 32, 3), generator=gen, device="cuda")
+    takes_kernel = va.takes_kernel
+    runs, z = {}, None
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        vae = cast_compute(vae, dtype)
+        for path in ("einsum", "kernel"):
+            if path == "einsum":
+                va.takes_kernel = lambda *a: False
+            try:
+                with torch.no_grad():
+                    before = LAUNCH_COUNTS["vae_attention"]
+                    moments = vae.encode_moments(x)
+                    z = moments[..., :3] if z is None else z
+                    decoded = vae.decode(z)
+                    launches = LAUNCH_COUNTS["vae_attention"] - before
+                    ms = time_ms(torch, lambda: vae.encode_moments(x), 3)
+            finally:
+                va.takes_kernel = takes_kernel
+            runs[name, path] = (moments, decoded, launches, ms)
+    ref = runs["float32", "einsum"]
+    gaps = {}
+    for (name, path), (moments, decoded, launches, ms) in runs.items():
+        row = gaps[f"{name}_{path}"] = dict(launches=launches, encode_ms=ms)
+        for part, got, want in (("encode", moments, ref[0]), ("decode", decoded, ref[1])):
+            diff = got - want
+            row[part] = diff.abs().max().item() / want.abs().max().item()
+            row[f"{part}_rms"] = (diff.square().mean() / want.square().mean()).sqrt().item()
+    f32, bf16, bf16_einsum = gaps["float32_kernel"], gaps["bfloat16_kernel"], gaps["bfloat16_einsum"]
+    if (any(g["launches"] != (2 * VAE_ATTENTIONS if k.endswith("kernel") else 0)
+            for k, g in gaps.items())
+            or max(f32["encode"], f32["decode"]) > VAE_PATH_F32_BAR
+            or any(bf16[p] > VAE_PATH_BF16_RATIO * bf16_einsum[p]
+                   for p in ("encode_rms", "decode_rms"))):
+        raise AssertionError(f"vae_attention: the edge VAE at N={N} against its f32 einsum "
+                             f"path: {gaps}; bars {VAE_PATH_F32_BAR:g} in f32, bf16 RMS within "
+                             f"{VAE_PATH_BF16_RATIO:g} x the bf16 einsum path's")
+    log(f"vae_attention: production edge VAE, N={N} edges, TF32 off, encode / decode against the "
+        f"f32 einsum path, largest difference over its largest output: through K6 f32 "
+        f"{f32['encode']:.3e} / {f32['decode']:.3e} (bar {VAE_PATH_F32_BAR:g}), bf16 "
+        f"{bf16['encode']:.3e} / {bf16['decode']:.3e} (RMS {bf16['encode_rms']:.3e} / "
+        f"{bf16['decode_rms']:.3e}); einsum path bf16 {bf16_einsum['encode']:.3e} / "
+        f"{bf16_einsum['decode']:.3e} (RMS {bf16_einsum['encode_rms']:.3e} / "
+        f"{bf16_einsum['decode_rms']:.3e}; K6's bar {VAE_PATH_BF16_RATIO:g} x its RMS); "
+        f"K6 launches {f32['launches']} + {bf16['launches']}; "
+        f"encode ms through K6 / einsums: f32 {f32['encode_ms']:.2f} / "
+        f"{gaps['float32_einsum']['encode_ms']:.2f}, bf16 {bf16['encode_ms']:.2f} / "
+        f"{bf16_einsum['encode_ms']:.2f}")
+    del vae, x, z, runs, ref
+    torch.cuda.empty_cache()
+    return gaps
+
+
 def phase_train(torch, np, work):
     """The training CLI (``ldm_main``) on edgez at production width in bf16:
     K5 once per layer of every step, K1 twice (forward and the recompute of
@@ -514,7 +685,8 @@ def phase_train(torch, np, work):
     model, steps, val_calls = run.state.module, run.state.step, run.val_calls
     layers = model.encoder.num_layers
     want = dict(packed_attention_backward=layers * steps,
-                packed_attention=2 * layers * steps + layers * val_calls)
+                packed_attention=2 * layers * steps + layers * val_calls,
+                vae_attention=VAE_ATTENTIONS * (steps + val_calls))  # each frozen edge encode
     others = {k: v for k, v in counts.items() if k not in want and v}
     if not model.encoder.remat or steps < 2 or val_calls < 1 or others or any(
             counts[k] != v for k, v in want.items()):
@@ -540,7 +712,9 @@ def phase_train(torch, np, work):
         + f"; {ms_per_step:.1f} ms per step after the first epoch; K5 launches "
         f"{counts['packed_attention_backward']} = {layers} x {steps} steps, K1 launches "
         f"{counts['packed_attention']} = 2 x {layers} x {steps} + {layers} x "
-        f"{val_calls} validation calls; losses " + ", ".join(f"{x:.4f}" for x in losses)
+        f"{val_calls} validation calls, K6 launches {counts['vae_attention']} = "
+        f"{VAE_ATTENTIONS} x ({steps} + {val_calls}) edge encodes; losses "
+        + ", ".join(f"{x:.4f}" for x in losses)
         + f"; validation {vals}")
 
     # the written pack, strictly reloaded, gives the trained module's forward
@@ -588,7 +762,8 @@ def phase_train(torch, np, work):
     worst, worst_name = max((norm([gk[n] - g]) / max(norm([g]), 1e-30), n)
                             for n, g in gp.items())
     if (not rel <= GRAD_REL or ck["packed_attention_backward"] != 12
-            or cp["packed_attention_backward"] or abs(loss_k - loss_p) > 1e-4):
+            or cp["packed_attention_backward"] or abs(loss_k - loss_p) > 1e-4
+            or ck["vae_attention"] != VAE_ATTENTIONS or cp["vae_attention"] != VAE_ATTENTIONS):
         raise AssertionError(f"train: f32 kernel step against plain: global relative gradient "
                              f"difference {rel:.3e} (bar {GRAD_REL:g}), worst tensor "
                              f"{worst_name} {worst:.3e}, losses {loss_k} / {loss_p}, launches "
@@ -600,7 +775,8 @@ def phase_train(torch, np, work):
         f"{worst:.3e} ({worst_name})")
     return dict(path="train (ldm_main edgez, production width, bf16, B=128, S=600)",
                 launches=counts["packed_attention_backward"], k1_launches=counts["packed_attention"],
-                steps=steps, val_calls=val_calls, seconds=seconds, ms_per_step=ms_per_step, losses=losses, validation=vals,
+                vae_launches=counts["vae_attention"], steps=steps, val_calls=val_calls,
+                seconds=seconds, ms_per_step=ms_per_step, losses=losses, validation=vals,
                 reload_max_abs_diff=reload_diff, f32_grad_rel=rel, f32_grad_worst=worst)
 
 
@@ -767,8 +943,13 @@ def phase_pipeline(torch, np, work):
             layers = model.encoder.num_layers
             want = dict(packed_attention_backward=layers * steps,
                         packed_attention=2 * layers * steps + layers * val_calls)
-            others = {k: v for k, v in launches.items() if k not in want and v}
-            if others or any(launches[k] != v for k, v in want.items()) or not val_calls:
+            if name == "encoded":  # K6 in each step's and validation call's edge encode
+                want["vae_attention"] = VAE_ATTENTIONS * (steps + val_calls)
+            vae = launches["vae_attention"]  # cached: in the cache's encodes, in its thread
+            others = {k: v for k, v in launches.items()
+                      if k not in want and k != "vae_attention" and v}
+            if (others or any(launches[k] != v for k, v in want.items()) or not val_calls
+                    or not vae):
                 raise AssertionError(f"pipeline: {name}: {steps} steps, {val_calls} validation "
                                      f"calls; launches {launches}, expected {want}")
             ms, losses, epochs_rec = epoch_ms_per_step(run.metrics_path,
@@ -777,7 +958,8 @@ def phase_pipeline(torch, np, work):
                 raise AssertionError(f"pipeline: {name}: losses {losses}")
             runs[name] = dict(steps=steps, val_calls=val_calls, seconds=seconds, ms_per_step=ms,
                               launches=launches["packed_attention_backward"],
-                              k1_launches=launches["packed_attention"], losses=losses,
+                              k1_launches=launches["packed_attention"], vae_launches=vae,
+                              losses=losses,
                               epoch_seconds=[r["epoch_seconds"] for r in epochs_rec])
             if name == "cached":
                 cached_run = run
@@ -787,7 +969,7 @@ def phase_pipeline(torch, np, work):
                 f"{'' if name == 'cached' else ' after the first'}; K5 launches "
                 f"{launches['packed_attention_backward']} = {layers} x {steps}, K1 "
                 f"{launches['packed_attention']} = 2 x {layers} x {steps} + {layers} x "
-                f"{val_calls} validation calls")
+                f"{val_calls} validation calls, K6 {vae}")
 
         # the cache: every miss a distinct grid of the solids (or the padding's
         # zero grid), repeats hit
@@ -1093,7 +1275,8 @@ def phase_step(torch, np, solids_dir, solid_steps, work, pipeline):
     steps, val_calls = run.state.step, run.val_calls
     layers = run.state.module.encoder.num_layers
     want = dict(packed_attention_backward=layers * steps,
-                packed_attention=2 * layers * steps + layers * val_calls)
+                packed_attention=2 * layers * steps + layers * val_calls,
+                vae_attention=VAE_ATTENTIONS * (steps + val_calls))
     others = {k: v for k, v in launches.items() if k not in want and v}
     if (steps < STEP_EPOCHS or not val_calls or others
             or any(launches[k] != v for k, v in want.items())
@@ -1229,7 +1412,8 @@ def phase_dp(torch, np, work):
     steps, val_calls, counts = launches_line(outs["dp"])
     layers = 12
     want = dict(packed_attention_backward=layers * steps,
-                packed_attention=2 * layers * steps + layers * val_calls)
+                packed_attention=2 * layers * steps + layers * val_calls,
+                vae_attention=VAE_ATTENTIONS * (steps + val_calls))
     if steps < DP_EPOCHS or val_calls < 1 or any(counts[k] != v for k, v in want.items()) or \
             any(v for k, v in counts.items() if k not in want):
         raise AssertionError(f"dp (a): {steps} steps, {val_calls} validation calls; launches "
@@ -1624,6 +1808,7 @@ def phase_bench(torch, work):
     from brepgen_tpu_torch import bench
     from brepgen_tpu_torch.diffusion import make_pndm_plan
     from brepgen_tpu_torch.kernels import LAUNCH_COUNTS, reset_launch_counts
+    from brepgen_tpu_torch.sampling import CascadeConfig
     from brepgen_tpu_torch.sampling.aot import MANIFEST
     from brepgen_tpu_torch.tools import bench_cascade, chamfer_protocol_bench, io_bench, \
         train_step_bench
@@ -1644,9 +1829,13 @@ def phase_bench(torch, work):
         return report, launches, seconds
 
     per_shape = bench.WARMUP + 30
+    # K6 in the decode of the measured cascade's two batches
+    decode_cfg = CascadeConfig(batch_size=bench.B, num_surfaces=bench.NS // 2,
+                               num_edges=bench.NE)
     report, launches, seconds = run(
         "brepgen_tpu_torch.bench", bench.main, [],
-        {"packed_attention": layers * (3 * per_shape + 2 * bench.EDGE_EVALS)})
+        {"packed_attention": layers * (3 * per_shape + 2 * bench.EDGE_EVALS),
+         "vae_attention": decode_launches(decode_cfg, 2)})
     detail = report["detail"]
     if not (all(v == layers for v in detail["k1_launches_per_edge_step"].values())
             and math.isfinite(report["value"])
@@ -1676,7 +1865,8 @@ def phase_bench(torch, work):
     steps = 1 + BENCH_TRAIN_STEPS  # a warm-up step and the timed ones, kernel leg only
     report, launches, seconds = run(
         "train_step_bench", train_step_bench.main, ["--steps", str(BENCH_TRAIN_STEPS)],
-        {"packed_attention": layers * steps, "packed_attention_backward": layers * steps})
+        {"packed_attention": layers * steps, "packed_attention_backward": layers * steps,
+         "vae_attention": VAE_ATTENTIONS * 2 * steps})  # both legs encode in every step
     train_path = dict(path=f"train_step_bench (edgez B=128 S=600 bf16, no remat, "
                            f"{BENCH_TRAIN_STEPS} steps a leg, plain then kernel)",
                       seconds=seconds, **report)
@@ -1694,7 +1884,8 @@ def phase_bench(torch, work):
     steps = 1 + BENCH_IO_STEPS
     report, launches, seconds = run(
         "io_bench cached_only", io_bench.main, ["cached_only", "--steps", str(BENCH_IO_STEPS)],
-        {"packed_attention": 2 * layers * steps, "packed_attention_backward": layers * steps})
+        {"packed_attention": 2 * layers * steps, "packed_attention_backward": layers * steps,
+         "vae_attention": VAE_ATTENTIONS})  # the cache's one encode of the batch's edges
     io_path = dict(path=f"io_bench cached_only (edgez B=128 S=600 bf16, remat, cached "
                         f"latents, {BENCH_IO_STEPS} steps)", seconds=seconds, **report)
     paths["packed_attention"].append(dict(io_path, launches=launches["packed_attention"]))
@@ -1941,7 +2132,7 @@ def drive(torch, np, label, cascade, expected_edge_calls, batches=1, save_folder
     ends = []  # stage_times at the end of each batch
 
     def after_stage(stage):
-        events.append((stage, LAUNCH_COUNTS[kernel]))
+        events.append((stage, LAUNCH_COUNTS[kernel], LAUNCH_COUNTS["vae_attention"]))
         if stage == "decode":
             ends.append(dict(stage_times))
 
@@ -1964,15 +2155,27 @@ def drive(torch, np, label, cascade, expected_edge_calls, batches=1, save_folder
     if edge_calls != batches * expected_edge_calls:
         raise AssertionError(f"{label}: {edge_calls} edge-stage calls, expected "
                              f"{batches} x {expected_edge_calls}")
-    per_stage, prev = {}, 0
-    for stage, count in events:
+    per_stage, vae_stage, prev, prev_vae = {}, {}, 0, 0
+    for stage, count, vae_count in events:
         per_stage[stage] = per_stage.get(stage, 0) + count - prev
-        prev = count
+        vae_stage[stage] = vae_stage.get(stage, 0) + vae_count - prev_vae
+        prev, prev_vae = count, vae_count
     off_edge = {k: v for k, v in per_stage.items() if not k.startswith("edge") and v}
     if off_edge or others or launches != layers * edge_calls or prev != launches:
         raise AssertionError(f"{label}: {launches} {kernel} launches (by stage {per_stage}), "
                              f"expected {layers} x {edge_calls} edge-stage calls, none elsewhere; "
                              f"other attention kernels {others}")
+    # K6 in the decode stage alone, six in each chunk of edges; the
+    # postprocess overlapping the cascade re-decodes edges too, in threads
+    # that count their launches beside the cascade's
+    vae, vae_decode = counts["vae_attention"], decode_launches(cfg, batches)
+    vae_ok = (vae >= vae_decode if save_folder is not None else
+              vae == vae_decode and vae_stage == {**dict.fromkeys(vae_stage, 0),
+                                                  "decode": vae_decode})
+    if not vae_ok:
+        raise AssertionError(f"{label}: {vae} vae_attention launches (by stage {vae_stage}), "
+                             f"expected {vae_decode} in the decode stage"
+                             + (" and more in postprocess" if save_folder else ""))
     if counts["chamfer"]:
         raise AssertionError(f"{label}: the sampling path launched the chamfer kernel")
     cascade_s = sum(stage_times.values())
@@ -1981,7 +2184,9 @@ def drive(torch, np, label, cascade, expected_edge_calls, batches=1, save_folder
         f"ne={cfg.num_edges} S={cfg.faces * cfg.num_edges}; edge stages on {bucket} face slots "
         f"(S={bucket * cfg.num_edges}); edge-stage calls {edge_calls}; "
         f"{kernel} launches {launches} = {layers} layers x {edge_calls} (other stages and "
-        f"attention kernels 0); kept (faces, edges) per batch {kept}; cascade stage seconds "
+        f"attention kernels 0); vae_attention launches {vae} ({vae_decode} in the decode "
+        f"stage{', the rest in postprocess' if save_folder else ''}); kept (faces, edges) "
+        f"per batch {kept}; cascade stage seconds "
         + ", ".join(f"{k} {v:.2f}" for k, v in stage_times.items())
         + f"; total {run.seconds:.2f} s, {run.seconds / batches:.2f} s per batch")
     if save_folder is not None:
@@ -1992,6 +2197,7 @@ def drive(torch, np, label, cascade, expected_edge_calls, batches=1, save_folder
     return dict(path=label, kernel=kernel, B=cfg.batch_size, S=cfg.faces * cfg.num_edges,
                 edge_faces=bucket, W=net.width, H=net.encoder.layer_0.attn.num_heads,
                 dtype=str(net.dtype).split(".")[-1], batches=batches, launches=launches,
+                vae_launches=vae,
                 edge_calls=edge_calls, seconds=run.seconds, cascade_seconds=cascade_s,
                 stage_seconds=stage_times, produced=run.produced,
                 attempted=run.attempted,
@@ -2028,8 +2234,11 @@ def phase_solids(torch, np, cascade, batch, folder):
                     raise AssertionError(f"solids: {path} is empty")
     torch.cuda.synchronize()
     run.seconds = time.perf_counter() - t0
-    if any(LAUNCH_COUNTS.values()):
-        raise AssertionError(f"solids: postprocess launched port kernels {LAUNCH_COUNTS}")
+    # the host decoders re-decode edges through the edge VAE: K6, six a call
+    vae = LAUNCH_COUNTS["vae_attention"]
+    if any(n for k, n in LAUNCH_COUNTS.items() if k != "vae_attention") or vae % VAE_ATTENTIONS:
+        raise AssertionError(f"solids: postprocess launched port kernels {LAUNCH_COUNTS}, "
+                             f"expected K6 alone, six in each edge decode")
     if run.produced < 1:
         raise AssertionError(f"solids: no valid solid from the protocol batch; {run.report()}")
     log("solids (all160k protocol batch 0, process_one with recovery, serial): "
@@ -2246,9 +2455,14 @@ def phase_rescore(torch, np, work):
     cfg = CascadeConfig()
     edge_calls = cfg.pos_pndm_calls + cfg.ddpm_tail + len(make_pndm_plan(cfg.pndm_steps).t_model)
     want = 6 * edge_calls * RESCORE_BATCHES  # the packs' 6 layers in every edge-stage call
-    if launches["packed_attention"] != want or sum(launches.values()) != want:
-        raise AssertionError(f"rescore: launches {launches}, expected {want} packed_attention "
-                             f"and nothing else")
+    # K6: the batches' decodes, then the postprocess's re-decodes
+    vae, vae_decode = launches["vae_attention"], decode_launches(CascadeConfig(
+        batch_size=resample_main.BATCH, num_surfaces=10, num_edges=8), RESCORE_BATCHES)
+    if (launches["packed_attention"] != want or sum(launches.values()) != want + vae
+            or vae < vae_decode):
+        raise AssertionError(f"rescore: launches {launches}, expected {want} packed_attention, "
+                             f"at least {vae_decode} vae_attention (the decodes) and nothing "
+                             f"else")
     sampled = next(ln for ln in out.splitlines() if ln.startswith("sampled"))
     with open(os.path.join(work, "graphs", "graphs.json")) as f:
         manifest = json.load(f)
@@ -2317,7 +2531,7 @@ def phase_rescore(torch, np, work):
 
 KERNEL_NAMES = ("set_attention_kernel", "set_attention_wgmma_kernel", "packed_attention_kernel",
                 "packed_attention_wgmma_kernel", "dkv_kernel", "dq_kernel", "dkv_wgmma_kernel",
-                "dq_wgmma_kernel", "chamfer_kernel")
+                "dq_wgmma_kernel", "chamfer_kernel", "vae_attention_kernel")
 # (source, function label) -> (registers, spill stores, spill loads), from
 # build_report, for the kernel phases' lines
 REGISTERS = {}
@@ -2335,14 +2549,18 @@ def registers_text(source, *labels):
 
 
 def kernel_label(mangled):
-    """``set_attention_kernel<bf16, D=64>`` from a mangled kernel name."""
-    m = re.search(r"(" + "|".join(KERNEL_NAMES) + r")(?:I(13__nv_bfloat16|f)Li(\d+)E)?",
+    """``set_attention_kernel<bf16, D=64>`` (``vae_attention_kernel<bf16>``
+    for a kernel templated on its type alone) from a mangled kernel name."""
+    m = re.search(r"(" + "|".join(KERNEL_NAMES) + r")(?:I(13__nv_bfloat16|f)(?:Li(\d+))?E)?",
                   mangled)
     if not m:
         return mangled
     if not m.group(2):
         return m.group(1)
-    return f"{m.group(1)}<{'bf16' if 'bfloat16' in m.group(2) else 'f32'}, D={m.group(3)}>"
+    tag = "bf16" if "bfloat16" in m.group(2) else "f32"
+    if m.group(3) is None:
+        return f"{m.group(1)}<{tag}>"
+    return f"{m.group(1)}<{tag}, D={m.group(3)}>"
 
 
 def ptxas_table(report):
@@ -2460,7 +2678,8 @@ def main(argv=None) -> int:
     smi = nvidia_smi_card(0)
     print(smi, flush=True)
     t = time.perf_counter()
-    kernels = ("packed_attention", "set_attention", "chamfer", "packed_attention_bwd")
+    kernels = ("packed_attention", "set_attention", "chamfer", "packed_attention_bwd",
+               "vae_attention")
     # one nvcc per source and g++ for the native host library, all together
     with ThreadPoolExecutor(len(kernels) + 1) as pool:
         host_lib = pool.submit(native_bindings.load)
@@ -2490,6 +2709,11 @@ def main(argv=None) -> int:
     chamfer_shapes = phase_chamfer(torch, torch.Generator(device="cuda").manual_seed(args.seed),
                                    _build)
     log(f"phase kernel chamfer done in {time.perf_counter() - t:.2f} s")
+
+    t = time.perf_counter()
+    vae_shapes = []
+    vae_paths = phase_vae_attention(torch, vae_shapes)
+    log(f"phase kernel vae_attention done in {time.perf_counter() - t:.2f} s")
 
     t = time.perf_counter()
     small_paths = phase_small(torch)
@@ -2692,6 +2916,17 @@ def main(argv=None) -> int:
                      + bench_paths["packed_attention_backward"],
                      packed_attention_ms=backward_shapes[0]["packed_attention_ms"],
                      tensor_core_instructions=tensor_cores.get("packed_attention_bwd")),
+        kernel_entry("vae_attention", csrc + "vae_attention.cu",
+                     "brepgen_tpu/nn/vae1d.py:114 (einsums; no TPU kernel)",
+                     training["vae_launches"], vae_shapes,
+                     [dict(path=training["path"], launches=training["vae_launches"]),
+                      dict(path=paths["packed_attention"][0]["path"],
+                           launches=paths["packed_attention"][0]["vae_launches"]),
+                      dict(path=paths["set_attention"][0]["path"],
+                           launches=paths["set_attention"][0]["vae_launches"]),
+                      dict(path="pipeline (ldm_main edgez, encoding in the step)",
+                           launches=pipeline["ldm"]["encoded"]["vae_launches"])],
+                     edge_vae=vae_paths),
     ]}), flush=True)
     log(f"all phases passed in {time.perf_counter() - T0:.2f} s")
     print(json.dumps({"ok": True, "device": {
