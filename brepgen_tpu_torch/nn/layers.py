@@ -14,16 +14,33 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from brepgen_tpu_torch.kernels import add_layer_norm
+
 
 class LayerNorm(nn.LayerNorm):
-    """LayerNorm in f32 with flax's default eps; returns the input's type."""
+    """LayerNorm in f32 with flax's default eps; returns the input's type.
+
+    ``add_forward`` takes the residual add in front of the norm with it; on
+    the card without gradients both go through one kernel
+    (``kernels/add_layer_norm.py``), elsewhere through the plain ops."""
 
     def __init__(self, width: int, eps: float = 1e-6):
         super().__init__(width, eps=eps)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.layer_norm(x.float(), self.normalized_shape, self.weight, self.bias, self.eps)
-        return y.to(x.dtype)
+    def forward(self, x: torch.Tensor, delta: Optional[torch.Tensor] = None,
+                silu: bool = False) -> torch.Tensor:
+        """The norm of x + delta (of x without delta), SiLU'd with ``silu``."""
+        return self.add_forward(x, delta, silu, keep_sum=False)[1]
+
+    def add_forward(self, x: torch.Tensor, delta: Optional[torch.Tensor] = None,
+                    silu: bool = False, keep_sum: bool = True):
+        """(s, y): the stream s = x + delta (x without delta) and its norm y,
+        SiLU'd with ``silu``; s may be None with ``keep_sum`` False."""
+        if add_layer_norm.takes_kernel(x, delta, self.weight, self.bias):
+            return add_layer_norm.add_layer_norm(x, delta, self.weight, self.bias, self.eps,
+                                                 silu, keep_sum)
+        return add_layer_norm.add_layer_norm_reference(x, delta, self.weight, self.bias,
+                                                       self.eps, silu)
 
 
 class GroupNorm(nn.GroupNorm):
@@ -57,7 +74,7 @@ class MLPEmbedder(nn.Module):
         self.fc2 = nn.Linear(width, out_dim if out_dim is not None else width)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(F.silu(self.norm(self.fc1(x))))
+        return self.fc2(self.norm(self.fc1(x), silu=True))
 
 
 class DiagonalGaussian:

@@ -30,6 +30,12 @@ Under tensor parallelism (``parallel/sharding_rules.py``) the FFN dropout
 acts on a rank's slice of the hidden units: its mask is drawn at the full
 FFN width and the rank's columns kept (``EncoderLayer.ffn_split``); the two
 masks on the residual stream are drawn whole, equal on the model ranks.
+
+Each residual add runs inside the norm after it (``EncoderLayer.carry``,
+``LayerNorm.add_forward``): a layer hands its FFN output to the next layer's
+``norm1``, the last to ``final_norm``, so that on the card without gradients
+the add, the norm and its casts are one kernel (``kernels/add_layer_norm.py``).
+The plain path runs the same operations in the same order as a separate add.
 """
 
 from __future__ import annotations
@@ -139,6 +145,16 @@ class EncoderLayer(nn.Module):
     def forward(self, x, key_padding_mask=None, seed: Optional[int] = None, row_split=None):
         """``seed`` (training) seeds this layer's dropout masks; None runs
         without dropout. ``row_split``: see ``dropout``."""
+        x, delta = self.carry(x, None, key_padding_mask, seed, row_split)
+        return x + delta
+
+    def carry(self, x, delta=None, key_padding_mask=None, seed: Optional[int] = None,
+              row_split=None):
+        """The layer on the stream x + delta, where ``delta`` is the previous
+        layer's FFN output not yet added (or None), so that each residual add
+        runs with the norm after it (``LayerNorm.add_forward``). Returns the
+        stream after the attention's residual and this layer's FFN output,
+        whose add the next norm takes."""
         gen = None
         if seed is not None and self.dropout != 0.0:
             gen = torch.Generator(device=x.device)
@@ -147,8 +163,9 @@ class EncoderLayer(nn.Module):
         def drop(h, cols=None):
             return h if gen is None else dropout(h, self.dropout, gen, row_split, cols)
 
-        x = x + drop(self.attn(self.norm1(x), key_padding_mask))
-        return x + drop(self.fc2(drop(F.relu(self.fc1(self.norm2(x))), self.ffn_split)))
+        x, h = self.norm1.add_forward(x, delta)
+        x, h = self.norm2.add_forward(x, drop(self.attn(h, key_padding_mask)))
+        return x, drop(self.fc2(drop(F.relu(self.fc1(h)), self.ffn_split)))
 
 
 REMATS = (False, True, "full", "dots")
@@ -186,10 +203,14 @@ class TransformerEncoder(nn.Module):
                 train: bool = False, generator: Optional[torch.Generator] = None):
         """``train`` turns dropout on, with one seed per layer drawn from
         ``generator``; with ``remat`` and grad enabled each layer is
-        recomputed in the backward."""
+        recomputed in the backward, whole (its input and output are the
+        stream, as without the carry). Otherwise each layer hands its FFN
+        output to the next norm (``EncoderLayer.carry``), the last to
+        ``final_norm``."""
         drop = train and self.dropout > 0.0
         if drop and generator is None:
             raise ValueError("train=True needs a generator for the dropout masks")
+        delta = None
         for i in range(self.num_layers):
             layer = getattr(self, f"layer_{i}")
             seed = None
@@ -203,5 +224,5 @@ class TransformerEncoder(nn.Module):
                 x = torch.utils.checkpoint.checkpoint(layer, x, key_padding_mask, seed,
                                                       self.row_split, use_reentrant=False, **kw)
             else:
-                x = layer(x, key_padding_mask, seed, self.row_split)
-        return self.final_norm(x)
+                x, delta = layer.carry(x, delta, key_padding_mask, seed, self.row_split)
+        return self.final_norm(x, delta)

@@ -12,7 +12,11 @@ attention's backward (K5) against its plain PyTorch version on the card, the
 attention kernels at head widths 64, 32 and 16; the edge VAE's attention
 kernel (K6) likewise at the training step's edge encode, timed beside the
 einsum path it replaces and SDPA, and the production edge VAE's encode and
-decode through it against the einsum path. After small cascades on the
+decode through it against the einsum path; the residual add and LayerNorm
+kernel (K7) at the sampling cells' token rows in f32 and bf16, timed beside
+the plain path (the add, the casts and ``F.layer_norm``) and its byte bound,
+with every sampling phase holding its launches stage by stage and every
+training phase's validation calls theirs. After small cascades on the
 card against the same ones on the CPU (the sample CLI's ``--small``
 architecture, head width 16, and width 64 with 2 heads) it drives the
 port's own entry points: the deepcad and abc cascades at the production width (seeded weights, DDIM fast mode;
@@ -192,6 +196,11 @@ VAE_ATTENTION_TOL = {"float32": (0.0, 1e-5), "bfloat16": (2.0 ** -8, 1e-5)}
 # decoded coordinate at N 76,800, an extreme that the RMS steadies.
 VAE_PATH_F32_BAR = 1e-4
 VAE_PATH_BF16_RATIO = 1.1
+# K7 (residual add + LayerNorm) at the sampling cells' token rows (B, S, W):
+# deepcad's and abc's edge stages; the residual bit-equal to the bf16 add,
+# the norm within 1 bf16 ulp (bf16) or 1e-5 (f32) of the plain path
+ALN_SHAPES = ((16, 1800, 768), (16, 4000, 768))
+ALN_F32_TOL = 1e-5
 
 
 def log(msg: str) -> None:
@@ -513,6 +522,129 @@ def decode_launches(cfg, batches=1):
     return VAE_ATTENTIONS * chunks * batches
 
 
+def call_norms(net, streams):
+    """K7 launches of one call of the denoiser ``net`` that embeds
+    ``streams`` of its streams: two a layer, the final norm, the time
+    embedding, the head and an embedder a stream."""
+    return 2 * net.encoder.num_layers + 3 + streams
+
+
+def cond_streams(net, stage):
+    """How many of ``stage``'s streams condition it: the outputs of the
+    stages before it, which ``Cascade.stage_eps`` embeds once a stage and
+    batch; the others are noised and embedded in every call."""
+    from brepgen_tpu_torch.sampling.cascade import STAGES
+
+    return sum(name in STAGES[:STAGES.index(stage)] for name in net.stream_names)
+
+
+def norm_launches(nets, calls, batches):
+    """K7 launches by stage of ``batches`` cascade batches whose denoisers
+    ``nets`` ({stage: net}) made ``calls`` ({stage: calls})."""
+    launches = {}
+    for s, n in calls.items():
+        cond = cond_streams(nets[s], s)
+        launches[s] = n * call_norms(nets[s], len(nets[s].stream_names) - cond) + batches * cond
+    return launches
+
+
+def val_norm_launches(net, val_calls):
+    """K7 launches of ``val_calls`` validation calls (no gradient) of the
+    denoiser ``net``, each embedding every stream; the training steps keep
+    the plain path."""
+    return call_norms(net, len(net.stream_names)) * val_calls
+
+
+def production_nets(torch):
+    """The four denoisers at the production width on the meta device: their
+    streams and layers, no weights."""
+    from brepgen_tpu_torch.cli.build import DENOISER_FACTORIES
+
+    with torch.device("meta"):
+        return {s: make() for s, make in DENOISER_FACTORIES.items()}
+
+
+def bf16_steps(torch, got, want):
+    """Largest |got - want| of two bf16 tensors in bf16 steps at want's
+    magnitude (2^-7 of its power of two), and in steps of ``ALN_F32_TOL``
+    where that is the larger: near 0 a bf16 step is finer than the two
+    paths' f32 difference before the rounding."""
+    step = torch.exp2((torch.frexp(want.float()).exponent - 8).float()) * (want != 0)
+    err = (got.float() - want.float()).abs()
+    return (err / step.clamp(min=ALN_F32_TOL)).max().item()
+
+
+def phase_add_layer_norm(torch, results):
+    """K7 against its plain version (the bf16 add, the casts and
+    ``F.layer_norm`` in f32) at ``ALN_SHAPES`` in f32 and bf16, with the
+    residual (x and delta read, the sum and the norm written) and without
+    (x read, the norm written): the sum bit-equal to the plain add, the norm
+    within 1 bf16 ulp or ``ALN_F32_TOL``, SiLU on the kernel's own norm, two
+    launches bit-equal; timed beside the plain path and the byte bound."""
+    import torch.nn.functional as F
+
+    from brepgen_tpu_torch.kernels import LAUNCH_COUNTS
+    from brepgen_tpu_torch.kernels import add_layer_norm as aln
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for B, S, W in ALN_SHAPES:
+        weight = 1.0 + 0.25 * torch.randn(W, generator=gen, device="cuda")
+        bias = 0.1 * torch.randn(W, generator=gen, device="cuda")
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[-1]
+            tag = "bf16" if dtype == torch.bfloat16 else "f32"
+            x = (0.4 + 1.5 * torch.randn((B, S, W), generator=gen, device="cuda")).to(dtype)
+            d = (1.5 * torch.randn((B, S, W), generator=gen, device="cuda")).to(dtype)
+            for delta in (d, None):
+                label = (f"kernel add_layer_norm B={B} S={S} W={W} {name} "
+                         f"{'x + delta' if delta is not None else 'x alone'}")
+                with torch.no_grad():
+                    before = LAUNCH_COUNTS["add_layer_norm"]
+                    s, y = aln.add_layer_norm(x, delta, weight, bias, 1e-6)
+                    _, again = aln.add_layer_norm(x, delta, weight, bias, 1e-6, keep_sum=False)
+                    _, z = aln.add_layer_norm(x, delta, weight, bias, 1e-6, silu=True)
+                    launches = LAUNCH_COUNTS["add_layer_norm"] - before
+                    want_s, want_y = aln.add_layer_norm_reference(x, delta, weight, bias, 1e-6)
+                    abs_err = (y.float() - want_y.float()).abs().max().item()
+                    if dtype == torch.bfloat16:
+                        err = bf16_steps(torch, y, want_y)
+                        silu_err = bf16_steps(torch, z, F.silu(y))
+                        ok = err <= 1 and silu_err <= 1
+                    else:
+                        err = abs_err
+                        silu_err = (z - F.silu(y)).abs().max().item()
+                        ok = err <= ALN_F32_TOL and silu_err <= ALN_F32_TOL
+                    if (not ok or not torch.equal(s, want_s) or not torch.equal(y, again)
+                            or launches != 3):
+                        raise AssertionError(
+                            f"{label}: norm {err:g}, SiLU {silu_err:g} "
+                            f"{'bf16 steps' if dtype == torch.bfloat16 else 'max abs'} from the plain "
+                            f"path; sum bit-equal {torch.equal(s, want_s)}; two launches "
+                            f"bit-equal {torch.equal(y, again)}; launches {launches}")
+                    del s, y, again, z, want_s, want_y
+                    row = dict(B=B, S=S, W=W, dtype=name, residual=delta is not None,
+                               max_abs_err=abs_err, err=err, silu_err=silu_err,
+                               err_unit="bf16 steps" if dtype == torch.bfloat16 else "max abs")
+                    row["ms"] = time_ms(torch, lambda: aln.add_layer_norm(
+                        x, delta, weight, bias, 1e-6), 50)
+                    row["plain_ms"] = time_ms(torch, lambda: aln.add_layer_norm_reference(
+                        x, delta, weight, bias, 1e-6), 20)
+                # bytes: each input row read once, each output row written once
+                tensors = 4 if delta is not None else 2
+                row.update(bound_ms=tensors * B * S * W * x.element_size() / PEAK_BYTES * 1e3,
+                           bound_by="bytes")
+                row["bound_share"] = row["bound_ms"] / row["ms"]
+                results.append(row)
+                log(f"{label}: norm {err:g} {row['err_unit']} from the plain path, SiLU "
+                    f"{silu_err:g}, sum bit-equal, two launches bit-equal; kernel "
+                    f"{row['ms']:.4f} ms, plain path {row['plain_ms']:.4f} ms, bound "
+                    f"{row['bound_ms']:.4f} ms (bytes), {100 * row['bound_share']:.1f}% of it; "
+                    + registers_text("add_layer_norm", f"add_layer_norm_kernel<{tag}, "
+                                     f"chunks={-(-W * x.element_size() // 512)}>"))
+            del x, d
+            torch.cuda.empty_cache()
+
+
 def phase_vae_attention(torch, results):
     """K6 against its plain version at ``VAE_ATTENTION_SHAPE`` in f32 and
     bf16, two launches bit-equal, timed beside the einsum path it replaces
@@ -686,7 +818,8 @@ def phase_train(torch, np, work):
     layers = model.encoder.num_layers
     want = dict(packed_attention_backward=layers * steps,
                 packed_attention=2 * layers * steps + layers * val_calls,
-                vae_attention=VAE_ATTENTIONS * (steps + val_calls))  # each frozen edge encode
+                vae_attention=VAE_ATTENTIONS * (steps + val_calls),  # each frozen edge encode
+                add_layer_norm=val_norm_launches(model, val_calls))
     others = {k: v for k, v in counts.items() if k not in want and v}
     if not model.encoder.remat or steps < 2 or val_calls < 1 or others or any(
             counts[k] != v for k, v in want.items()):
@@ -775,8 +908,8 @@ def phase_train(torch, np, work):
         f"{worst:.3e} ({worst_name})")
     return dict(path="train (ldm_main edgez, production width, bf16, B=128, S=600)",
                 launches=counts["packed_attention_backward"], k1_launches=counts["packed_attention"],
-                vae_launches=counts["vae_attention"], steps=steps, val_calls=val_calls,
-                seconds=seconds, ms_per_step=ms_per_step, losses=losses, validation=vals,
+                vae_launches=counts["vae_attention"], norm_launches=counts["add_layer_norm"],
+                steps=steps, val_calls=val_calls, seconds=seconds, ms_per_step=ms_per_step, losses=losses, validation=vals,
                 reload_max_abs_diff=reload_diff, f32_grad_rel=rel, f32_grad_worst=worst)
 
 
@@ -942,7 +1075,8 @@ def phase_pipeline(torch, np, work):
             model, steps, val_calls = run.state.module, run.state.step, run.val_calls
             layers = model.encoder.num_layers
             want = dict(packed_attention_backward=layers * steps,
-                        packed_attention=2 * layers * steps + layers * val_calls)
+                        packed_attention=2 * layers * steps + layers * val_calls,
+                        add_layer_norm=val_norm_launches(model, val_calls))
             if name == "encoded":  # K6 in each step's and validation call's edge encode
                 want["vae_attention"] = VAE_ATTENTIONS * (steps + val_calls)
             vae = launches["vae_attention"]  # cached: in the cache's encodes, in its thread
@@ -1276,7 +1410,8 @@ def phase_step(torch, np, solids_dir, solid_steps, work, pipeline):
     layers = run.state.module.encoder.num_layers
     want = dict(packed_attention_backward=layers * steps,
                 packed_attention=2 * layers * steps + layers * val_calls,
-                vae_attention=VAE_ATTENTIONS * (steps + val_calls))
+                vae_attention=VAE_ATTENTIONS * (steps + val_calls),
+                add_layer_norm=val_norm_launches(run.state.module, val_calls))
     others = {k: v for k, v in launches.items() if k not in want and v}
     if (steps < STEP_EPOCHS or not val_calls or others
             or any(launches[k] != v for k, v in want.items())
@@ -1413,7 +1548,8 @@ def phase_dp(torch, np, work):
     layers = 12
     want = dict(packed_attention_backward=layers * steps,
                 packed_attention=2 * layers * steps + layers * val_calls,
-                vae_attention=VAE_ATTENTIONS * (steps + val_calls))
+                vae_attention=VAE_ATTENTIONS * (steps + val_calls),
+                add_layer_norm=val_norm_launches(production_nets(torch)["edgez"], val_calls))
     if steps < DP_EPOCHS or val_calls < 1 or any(counts[k] != v for k, v in want.items()) or \
             any(v for k, v in counts.items() if k not in want):
         raise AssertionError(f"dp (a): {steps} steps, {val_calls} validation calls; launches "
@@ -1832,10 +1968,17 @@ def phase_bench(torch, work):
     # K6 in the decode of the measured cascade's two batches
     decode_cfg = CascadeConfig(batch_size=bench.B, num_surfaces=bench.NS // 2,
                                num_edges=bench.NE)
+    # K7 in every replay of the surf step (one stream) and the three edge
+    # steps (five streams), and in the measured cascade's two batches
+    nets, cfg = production_nets(torch), CascadeConfig()
+    pos_calls = cfg.pos_pndm_calls + cfg.ddpm_tail
+    norms = per_shape * (call_norms(nets["surfpos"], 1) + 3 * call_norms(nets["edgez"], 5)) + sum(
+        norm_launches(nets, dict(surfpos=pos_calls, surfz=edgez_calls, edgepos=pos_calls,
+                                 edgez=edgez_calls), 1).values()) * 2
     report, launches, seconds = run(
         "brepgen_tpu_torch.bench", bench.main, [],
         {"packed_attention": layers * (3 * per_shape + 2 * bench.EDGE_EVALS),
-         "vae_attention": decode_launches(decode_cfg, 2)})
+         "vae_attention": decode_launches(decode_cfg, 2), "add_layer_norm": norms})
     detail = report["detail"]
     if not (all(v == layers for v in detail["k1_launches_per_edge_step"].values())
             and math.isfinite(report["value"])
@@ -1855,7 +1998,8 @@ def phase_bench(torch, work):
     report, launches, seconds = run(
         "bench_cascade time:edgez@24", bench_cascade.main,
         ["deepcad", "kernel", cache, "time:edgez@24", "1"],
-        {"packed_attention": layers * edgez_calls})
+        {"packed_attention": layers * edgez_calls,
+         "add_layer_norm": norm_launches(nets, {"edgez": edgez_calls}, 1)["edgez"]})
     if not os.path.isfile(os.path.join(cache, MANIFEST)):
         raise AssertionError(f"bench_cascade: no {MANIFEST} in {cache}")
     paths["packed_attention"].append(dict(
@@ -2120,7 +2264,8 @@ def drive(torch, np, label, cascade, expected_edge_calls, batches=1, save_folder
     """Run ``batches`` batches through the user's entry point, with host
     postprocess into ``save_folder`` when one is given; check the batches
     and the kernel counts (reset just before, read just after): ``kernel``
-    once per layer of every edge-stage call, no other attention kernel."""
+    once per layer of every edge-stage call, no other attention kernel, K7
+    in every denoiser stage as ``norm_launches`` counts it."""
     from brepgen_tpu_torch.cli.sample_main import sample_loop
     from brepgen_tpu_torch.kernels import LAUNCH_COUNTS, reset_launch_counts
 
@@ -2132,10 +2277,12 @@ def drive(torch, np, label, cascade, expected_edge_calls, batches=1, save_folder
     ends = []  # stage_times at the end of each batch
 
     def after_stage(stage):
-        events.append((stage, LAUNCH_COUNTS[kernel], LAUNCH_COUNTS["vae_attention"]))
+        events.append((stage, LAUNCH_COUNTS[kernel], LAUNCH_COUNTS["vae_attention"],
+                       LAUNCH_COUNTS["add_layer_norm"]))
         if stage == "decode":
             ends.append(dict(stage_times))
 
+    calls_before = dict(cascade.model_calls)
     calls0 = sum(cascade.model_calls[s] for s in ("edgepos", "edgez"))
     with tempfile.TemporaryDirectory() as tmp:
         folder = save_folder or tmp
@@ -2155,11 +2302,12 @@ def drive(torch, np, label, cascade, expected_edge_calls, batches=1, save_folder
     if edge_calls != batches * expected_edge_calls:
         raise AssertionError(f"{label}: {edge_calls} edge-stage calls, expected "
                              f"{batches} x {expected_edge_calls}")
-    per_stage, vae_stage, prev, prev_vae = {}, {}, 0, 0
-    for stage, count, vae_count in events:
+    per_stage, vae_stage, norm_stage, prev, prev_vae, prev_norm = {}, {}, {}, 0, 0, 0
+    for stage, count, vae_count, norm_count in events:
         per_stage[stage] = per_stage.get(stage, 0) + count - prev
         vae_stage[stage] = vae_stage.get(stage, 0) + vae_count - prev_vae
-        prev, prev_vae = count, vae_count
+        norm_stage[stage] = norm_stage.get(stage, 0) + norm_count - prev_norm
+        prev, prev_vae, prev_norm = count, vae_count, norm_count
     off_edge = {k: v for k, v in per_stage.items() if not k.startswith("edge") and v}
     if off_edge or others or launches != layers * edge_calls or prev != launches:
         raise AssertionError(f"{label}: {launches} {kernel} launches (by stage {per_stage}), "
@@ -2178,13 +2326,21 @@ def drive(torch, np, label, cascade, expected_edge_calls, batches=1, save_folder
                              + (" and more in postprocess" if save_folder else ""))
     if counts["chamfer"]:
         raise AssertionError(f"{label}: the sampling path launched the chamfer kernel")
+    # K7 in every norm of every denoiser call and conditioning embed, none in decode
+    norm_want = norm_launches(cascade.nets, {s: n - calls_before[s]
+                                             for s, n in cascade.model_calls.items()}, batches)
+    norm_want["decode"] = 0
+    if norm_stage != norm_want or counts["add_layer_norm"] != sum(norm_want.values()):
+        raise AssertionError(f"{label}: add_layer_norm launches by stage {norm_stage} "
+                             f"({counts['add_layer_norm']} in all), expected {norm_want}")
     cascade_s = sum(stage_times.values())
     bucket = cascade.last_bucket
     log(f"{label}: {batches} batch(es) of B={cfg.batch_size} ns={cfg.faces} "
         f"ne={cfg.num_edges} S={cfg.faces * cfg.num_edges}; edge stages on {bucket} face slots "
         f"(S={bucket * cfg.num_edges}); edge-stage calls {edge_calls}; "
         f"{kernel} launches {launches} = {layers} layers x {edge_calls} (other stages and "
-        f"attention kernels 0); vae_attention launches {vae} ({vae_decode} in the decode "
+        f"attention kernels 0); add_layer_norm launches by stage {norm_stage}; "
+        f"vae_attention launches {vae} ({vae_decode} in the decode "
         f"stage{', the rest in postprocess' if save_folder else ''}); kept (faces, edges) "
         f"per batch {kept}; cascade stage seconds "
         + ", ".join(f"{k} {v:.2f}" for k, v in stage_times.items())
@@ -2197,7 +2353,7 @@ def drive(torch, np, label, cascade, expected_edge_calls, batches=1, save_folder
     return dict(path=label, kernel=kernel, B=cfg.batch_size, S=cfg.faces * cfg.num_edges,
                 edge_faces=bucket, W=net.width, H=net.encoder.layer_0.attn.num_heads,
                 dtype=str(net.dtype).split(".")[-1], batches=batches, launches=launches,
-                vae_launches=vae,
+                vae_launches=vae, norm_launches=counts["add_layer_norm"],
                 edge_calls=edge_calls, seconds=run.seconds, cascade_seconds=cascade_s,
                 stage_seconds=stage_times, produced=run.produced,
                 attempted=run.attempted,
@@ -2453,16 +2609,23 @@ def phase_rescore(torch, np, work):
     launches = dict(LAUNCH_COUNTS)
     t1 = time.perf_counter()
     cfg = CascadeConfig()
-    edge_calls = cfg.pos_pndm_calls + cfg.ddpm_tail + len(make_pndm_plan(cfg.pndm_steps).t_model)
+    pos_calls, z_calls = cfg.pos_pndm_calls + cfg.ddpm_tail, len(
+        make_pndm_plan(cfg.pndm_steps).t_model)
+    edge_calls = pos_calls + z_calls
     want = 6 * edge_calls * RESCORE_BATCHES  # the packs' 6 layers in every edge-stage call
     # K6: the batches' decodes, then the postprocess's re-decodes
     vae, vae_decode = launches["vae_attention"], decode_launches(CascadeConfig(
         batch_size=resample_main.BATCH, num_surfaces=10, num_edges=8), RESCORE_BATCHES)
-    if (launches["packed_attention"] != want or sum(launches.values()) != want + vae
-            or vae < vae_decode):
+    # K7: every norm of every denoiser call and conditioning embed of the packs
+    models = load_models(False, PACKS, dtype=torch.bfloat16)
+    batch_calls = dict(surfpos=pos_calls, surfz=z_calls, edgepos=pos_calls, edgez=z_calls)
+    norms = sum(norm_launches(models[0], {s: n * RESCORE_BATCHES for s, n in batch_calls.items()},
+                              RESCORE_BATCHES).values())
+    if (launches["packed_attention"] != want or launches["add_layer_norm"] != norms
+            or sum(launches.values()) != want + vae + norms or vae < vae_decode):
         raise AssertionError(f"rescore: launches {launches}, expected {want} packed_attention, "
-                             f"at least {vae_decode} vae_attention (the decodes) and nothing "
-                             f"else")
+                             f"{norms} add_layer_norm, at least {vae_decode} vae_attention (the "
+                             f"decodes) and nothing else")
     sampled = next(ln for ln in out.splitlines() if ln.startswith("sampled"))
     with open(os.path.join(work, "graphs", "graphs.json")) as f:
         manifest = json.load(f)
@@ -2475,10 +2638,16 @@ def phase_rescore(torch, np, work):
 
     # the captured batch 0 against the same batch eagerly
     dumped = resample_main.load_dump(os.path.join(rec, "batches.npz"))[0]
-    models = load_models(False, PACKS, dtype=torch.bfloat16)
     eager_cfg = CascadeConfig(batch_size=resample_main.BATCH, num_surfaces=10, num_edges=8)
-    (eager,), _ = quiet(resample_main.generate, Cascade(*models, eager_cfg), 1,
-                        resample_main.SEED)
+    reset_launch_counts()
+    eager_cascade = Cascade(*models, eager_cfg)
+    (eager,), _ = quiet(resample_main.generate, eager_cascade, 1, resample_main.SEED)
+    if (eager_cascade.model_calls != batch_calls
+            or LAUNCH_COUNTS["add_layer_norm"] != norms // RESCORE_BATCHES):
+        raise AssertionError(f"rescore eager batch: denoiser calls {eager_cascade.model_calls}, "
+                             f"expected {batch_calls}; {LAUNCH_COUNTS['add_layer_norm']} "
+                             f"add_layer_norm launches, expected {norms // RESCORE_BATCHES}")
+    del eager_cascade
     errs = compare_batches(np, "rescore batch 0, bf16", [eager], [dumped])
     del models
     t3 = time.perf_counter()
@@ -2523,7 +2692,7 @@ def phase_rescore(torch, np, work):
     keep = ("attempted", "valid_breps", "valid_strict", "valid_solid", "recovered",
             "failures", "postprocess_s")
     return dict(path="rescore (resample_main, all160k, 10 x 8, B=16, bf16, captured)",
-                launches=want, recovered={k: line_rec[k] for k in keep},
+                launches=want, norm_launches=norms, recovered={k: line_rec[k] for k in keep},
                 strict={k: line_strict[k] for k in keep}, metrics=scores,
                 graphs=len(manifest), max_abs_diff_eager=errs, chamfer_launches=6,
                 chamfer_max_abs_err_real_clouds=real_errs, seconds=t4 - t0)
@@ -2531,7 +2700,8 @@ def phase_rescore(torch, np, work):
 
 KERNEL_NAMES = ("set_attention_kernel", "set_attention_wgmma_kernel", "packed_attention_kernel",
                 "packed_attention_wgmma_kernel", "dkv_kernel", "dq_kernel", "dkv_wgmma_kernel",
-                "dq_wgmma_kernel", "chamfer_kernel", "vae_attention_kernel")
+                "dq_wgmma_kernel", "chamfer_kernel", "vae_attention_kernel",
+                "add_layer_norm_kernel")
 # (source, function label) -> (registers, spill stores, spill loads), from
 # build_report, for the kernel phases' lines
 REGISTERS = {}
@@ -2550,7 +2720,8 @@ def registers_text(source, *labels):
 
 def kernel_label(mangled):
     """``set_attention_kernel<bf16, D=64>`` (``vae_attention_kernel<bf16>``
-    for a kernel templated on its type alone) from a mangled kernel name."""
+    for a kernel templated on its type alone, ``add_layer_norm_kernel<bf16,
+    chunks=3>`` for K7) from a mangled kernel name."""
     m = re.search(r"(" + "|".join(KERNEL_NAMES) + r")(?:I(13__nv_bfloat16|f)(?:Li(\d+))?E)?",
                   mangled)
     if not m:
@@ -2560,7 +2731,9 @@ def kernel_label(mangled):
     tag = "bf16" if "bfloat16" in m.group(2) else "f32"
     if m.group(3) is None:
         return f"{m.group(1)}<{tag}>"
-    return f"{m.group(1)}<{tag}, D={m.group(3)}>"
+    # K7 is templated on the 16-byte chunks a lane holds, the others on D
+    arg = "chunks" if m.group(1) == "add_layer_norm_kernel" else "D"
+    return f"{m.group(1)}<{tag}, {arg}={m.group(3)}>"
 
 
 def ptxas_table(report):
@@ -2679,7 +2852,7 @@ def main(argv=None) -> int:
     print(smi, flush=True)
     t = time.perf_counter()
     kernels = ("packed_attention", "set_attention", "chamfer", "packed_attention_bwd",
-               "vae_attention")
+               "vae_attention", "add_layer_norm")
     # one nvcc per source and g++ for the native host library, all together
     with ThreadPoolExecutor(len(kernels) + 1) as pool:
         host_lib = pool.submit(native_bindings.load)
@@ -2714,6 +2887,11 @@ def main(argv=None) -> int:
     vae_shapes = []
     vae_paths = phase_vae_attention(torch, vae_shapes)
     log(f"phase kernel vae_attention done in {time.perf_counter() - t:.2f} s")
+
+    t = time.perf_counter()
+    norm_shapes = []
+    phase_add_layer_norm(torch, norm_shapes)
+    log(f"phase kernel add_layer_norm done in {time.perf_counter() - t:.2f} s")
 
     t = time.perf_counter()
     small_paths = phase_small(torch)
@@ -2927,6 +3105,13 @@ def main(argv=None) -> int:
                       dict(path="pipeline (ldm_main edgez, encoding in the step)",
                            launches=pipeline["ldm"]["encoded"]["vae_launches"])],
                      edge_vae=vae_paths),
+        kernel_entry("add_layer_norm", csrc + "add_layer_norm.cu",
+                     "none (XLA fuses the add, the casts and the norm; nn/layers.py LayerNorm)",
+                     paths["packed_attention"][0]["norm_launches"], norm_shapes,
+                     [dict(path=p["path"], launches=p["norm_launches"])
+                      for p in paths["packed_attention"] + paths["set_attention"]
+                      + paths["packed_flash_attention"] if "norm_launches" in p]
+                     + [dict(path=training["path"], launches=training["norm_launches"])]),
     ]}), flush=True)
     log(f"all phases passed in {time.perf_counter() - T0:.2f} s")
     print(json.dumps({"ok": True, "device": {

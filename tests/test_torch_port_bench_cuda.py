@@ -3,7 +3,7 @@
 ``brepgen_tpu_torch.bench`` times each step as replays of a CUDA graph
 captured through ``StageGraphs``. These tests hold a replay to the same step
 run eagerly (bit-equal), and the K1 launches the graph records per edge step
-to the layer count. Marked ``cuda``: they skip without a card. This file
+to the layer count (and K7's to the step's norms). Marked ``cuda``: they skip without a card. This file
 imports no JAX:
 
     python -m pytest --noconftest -m cuda tests/test_torch_port_bench_cuda.py
@@ -72,5 +72,10 @@ def test_time_steps_counts_k1_per_edge_step_on_card(cuda):
         bench.edge_step(net), torch.randn((B, S, 18), generator=gen, device=cuda), consts, 4,
         StageGraphs(None), "edge", torch.bfloat16)
     assert seconds > 0
-    assert launches["packed_attention"] == ARCHS["production"]["denoiser"]["num_layers"]
-    assert all(n == 0 for k, n in launches.items() if k != "packed_attention")
+    layers = ARCHS["production"]["denoiser"]["num_layers"]
+    assert launches["packed_attention"] == layers
+    # K7: two norms a layer, the final norm, the five streams' embedders, the
+    # time embedding's and the head's
+    assert launches["add_layer_norm"] == 2 * layers + 1 + 5 + 2
+    assert all(n == 0 for k, n in launches.items()
+               if k not in ("packed_attention", "add_layer_norm"))
